@@ -1,0 +1,29 @@
+"""Super-resolution degradation on host numpy batches, copied from the JAX
+package's `data/degradations.py:bicubic_resize_np, sr_degrade`."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..ops.resize import resize_matrix
+
+
+def bicubic_resize_np(batch: np.ndarray, out_size: int) -> np.ndarray:
+    """Batched MATLAB-bicubic resize on host (NHWC numpy)."""
+    B, H, W, C = batch.shape
+    Mh = resize_matrix(H, out_size, antialias=True)
+    Mw = resize_matrix(W, out_size, antialias=True)
+    out = np.einsum("oh,bhwc->bowc", Mh, batch)
+    out = np.einsum("pw,bowc->bopc", Mw, out)
+    return out.astype(batch.dtype)
+
+
+def nearest_upsample_np(batch: np.ndarray, factor: int) -> np.ndarray:
+    return batch.repeat(factor, axis=1).repeat(factor, axis=2)
+
+
+def sr_degrade(batch: np.ndarray, scale: int) -> np.ndarray:
+    """HR -> bicubic LR -> nearest-neighbor back to HR size."""
+    H = batch.shape[1]
+    lr = bicubic_resize_np(batch, H // scale)
+    return nearest_upsample_np(lr, scale)

@@ -1,0 +1,50 @@
+"""Score-network models (PyTorch, NHWC) and their registry."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from .. import registry
+
+register_model = registry.models.register
+get_model = registry.models.get
+
+
+def create_model(config, device="cuda") -> nn.Module:
+    """The model named by ``config.model.name``, built on ``device`` with
+    the DDPM default init, in eval mode."""
+    cls = get_model(config.model.name)
+    with torch.device(device):
+        model = cls.from_config(config)
+    return model.eval()
+
+
+def init_model_random(config, seed: int = 0, scale: float = 0.02, device="cuda") -> nn.Module:
+    """Counterpart of the JAX `init_model_shapes_only`: the model with every
+    parameter drawn from N(0, scale) by a generator seeded with ``seed``,
+    except GroupNorm scales (ones) and biases (zeros).
+
+    The DDPM init zeroes every conv1 and conv_out, so a freshly initialized
+    network outputs exactly 0 and the Langevin corrector, which divides by
+    the score's norm, steps to inf.  Random weights for a run without a
+    checkpoint therefore come from here.
+    """
+    model = create_model(config, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "weight" and p.ndim == 1:  # GroupNorm scale
+                p.fill_(1.0)
+            elif leaf == "bias":
+                p.zero_()
+            else:
+                p.normal_(0.0, scale, generator=gen)
+    return model
+
+
+# Side-effect import fills the registry.
+from . import ddpm  # noqa: E402,F401
+
+__all__ = ["register_model", "get_model", "create_model", "init_model_random"]

@@ -1,0 +1,72 @@
+"""Weight bridge between the JAX package's Flax ``params`` tree and this
+port's ``state_dict``.
+
+Module names are the same on both sides (`models/ddpm.py`), so the bridge
+only renames leaves and transposes them:
+
+  * conv ``kernel`` HWIO          <-> ``weight`` OIHW
+  * dense ``kernel`` (in, out)    <-> ``weight`` (out, in)   (Dense, NIN,
+    SplitNIN: ``.../dense/kernel``)
+  * GroupNorm ``scale`` (C,)      <-> ``weight`` (C,)
+  * ``bias``                      <-> ``bias``
+
+The split banks (SplitGroupNorm, SplitConv3x3, SplitNIN) hold the same
+parameters as their joint modules, so they need nothing of their own.  The
+Flax tree is taken as nested dicts of numpy arrays (``jax.device_get``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _leaf_to_torch(name: str, value: np.ndarray):
+    if name == "kernel" and value.ndim == 4:
+        return "weight", np.transpose(value, (3, 2, 0, 1))
+    if name == "kernel" and value.ndim == 2:
+        return "weight", value.T
+    if name == "scale":
+        return "weight", value
+    if name == "bias":
+        return "bias", value
+    raise KeyError(f"no torch counterpart for Flax leaf {name!r} of shape {value.shape}")
+
+
+def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax params (nested dicts of arrays) -> a torch ``state_dict``."""
+    out = {}
+
+    def walk(tree, prefix):
+        for key, value in tree.items():
+            if isinstance(value, Mapping):
+                walk(value, prefix + (key,))
+            else:
+                leaf, arr = _leaf_to_torch(key, np.asarray(value))
+                out[".".join(prefix + (leaf,))] = torch.from_numpy(np.ascontiguousarray(arr))
+
+    walk(params, ())
+    return out
+
+
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """A torch ``state_dict`` -> Flax params (nested dicts of numpy arrays)."""
+    params: Dict = {}
+    for key, tensor in state_dict.items():
+        *path, leaf = key.split(".")
+        arr = tensor.detach().cpu().numpy()
+        if leaf == "weight" and arr.ndim == 4:
+            leaf, arr = "kernel", np.transpose(arr, (2, 3, 1, 0))
+        elif leaf == "weight" and arr.ndim == 2:
+            leaf, arr = "kernel", arr.T
+        elif leaf == "weight" and arr.ndim == 1:
+            leaf = "scale"
+        elif leaf != "bias":
+            raise KeyError(f"no Flax counterpart for {key!r}")
+        node = params
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return params

@@ -1,0 +1,190 @@
+"""DDPM U-Net and its paired (x, y) variant in PyTorch, NHWC (JAX
+`models/ddpm.py`: `DDPM`, `DDPMPaired`).
+
+Submodules carry the JAX module names (``conv_in``, ``down_0_0``,
+``down_attn_3_0``, ``mid_block0``, ``up_5_2``, ``norm_out``, ...), so a
+``state_dict`` key is the Flax parameter path with the leaf renamed.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from . import register_model
+from .layers import (
+    AttnBlock,
+    Conv3x3,
+    Dense,
+    Downsample,
+    ResnetBlockDDPM,
+    Upsample,
+    get_timestep_embedding,
+    legacy_group_norm,
+)
+
+_ACTS = {
+    "elu": F.elu,
+    "relu": F.relu,
+    "lrelu": lambda x: F.leaky_relu(x, 0.2),
+    "swish": F.silu,
+}
+
+
+@register_model(name="ddpm")
+class DDPM(nn.Module):
+    """Classic DDPM U-Net on NHWC input; ``forward(x, cond)``."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        nf: int,
+        ch_mult: Sequence[int],
+        num_res_blocks: int,
+        attn_resolutions: Sequence[int],
+        dropout: float,
+        resamp_with_conv: bool,
+        image_size: int,
+        conditional: bool,
+        centered: bool,
+        output_channels: int,
+        nonlinearity: str = "swish",
+        split_skip_convs: bool = False,
+        fused_tail: bool = False,
+    ):
+        super().__init__()
+        self.act = act = _ACTS[nonlinearity]
+        self.nf, self.conditional, self.centered = nf, conditional, centered
+        num_resolutions = len(ch_mult)
+        temb_dim = nf * 4 if conditional else None
+        if conditional:
+            self.temb0 = Dense(nf, nf * 4)
+            self.temb1 = Dense(nf * 4, nf * 4)
+
+        def resblock(in_ch, out_ch, split=False):
+            return ResnetBlockDDPM(
+                act, in_ch, out_ch, temb_dim=temb_dim, dropout=dropout,
+                split_skip=split, fused_tail=fused_tail,
+            )
+
+        # The encoder and decoder are fixed sequences of (kind, name) steps,
+        # built here with the channel bookkeeping and replayed by forward.
+        self.conv_in = Conv3x3(in_channels, nf)
+        self._down_plan, self._up_plan = [], []
+        hs_ch, res = [nf], image_size
+        for i_level in range(num_resolutions):
+            for i_block in range(num_res_blocks):
+                name = f"down_{i_level}_{i_block}"
+                out_ch = nf * ch_mult[i_level]
+                self.add_module(name, resblock(hs_ch[-1], out_ch))
+                attn = f"down_attn_{i_level}_{i_block}" if res in attn_resolutions else None
+                if attn is not None:
+                    self.add_module(attn, AttnBlock(out_ch))
+                self._down_plan.append(("block", name, attn))
+                hs_ch.append(out_ch)
+            if i_level != num_resolutions - 1:
+                self.add_module(f"down_{i_level}", Downsample(hs_ch[-1], with_conv=resamp_with_conv))
+                self._down_plan.append(("downsample", f"down_{i_level}", None))
+                hs_ch.append(hs_ch[-1])
+                res //= 2
+
+        ch = hs_ch[-1]
+        self.mid_block0 = resblock(ch, None)
+        self.mid_attn = AttnBlock(ch)
+        self.mid_block1 = resblock(ch, None)
+
+        for i_level in reversed(range(num_resolutions)):
+            for i_block in range(num_res_blocks + 1):
+                name = f"up_{i_level}_{i_block}"
+                out_ch = nf * ch_mult[i_level]
+                self.add_module(name, resblock(ch + hs_ch.pop(), out_ch, split=split_skip_convs))
+                self._up_plan.append(("block", name))
+                ch = out_ch
+            if res in attn_resolutions:
+                self.add_module(f"up_attn_{i_level}", AttnBlock(ch))
+                self._up_plan.append(("layer", f"up_attn_{i_level}"))
+            if i_level != 0:
+                self.add_module(f"up_{i_level}", Upsample(ch, with_conv=resamp_with_conv))
+                self._up_plan.append(("layer", f"up_{i_level}"))
+                res *= 2
+        if hs_ch:
+            raise AssertionError("unconsumed skip connections")
+
+        self.norm_out = legacy_group_norm(ch)
+        self.conv_out = Conv3x3(ch, output_channels, init_scale=0.0)
+
+    @classmethod
+    def from_config(cls, config, in_channels=None):
+        m = config.model
+        return cls(
+            in_channels=in_channels if in_channels is not None else m.get("input_channels", config.data.num_channels),
+            nf=m.nf,
+            ch_mult=tuple(m.ch_mult),
+            num_res_blocks=m.num_res_blocks,
+            attn_resolutions=tuple(m.attn_resolutions),
+            dropout=m.dropout,
+            resamp_with_conv=m.resamp_with_conv,
+            image_size=config.data.effective_image_size,
+            conditional=m.conditional,
+            centered=config.data.centered,
+            output_channels=m.output_channels,
+            nonlinearity=m.nonlinearity.lower(),
+            split_skip_convs=m.get("split_skip_convs", True),
+            fused_tail=m.get("fused_tail", False),
+        )
+
+    def forward(self, x, cond):
+        act = self.act
+        if self.conditional:
+            # sin/cos in float32, then the activation dtype
+            temb = get_timestep_embedding(cond, self.nf).to(x.dtype)
+            temb = self.temb1(act(self.temb0(temb)))
+        else:
+            temb = None
+
+        h = x if self.centered else 2 * x - 1.0
+        hs = [self.conv_in(h)]
+        for kind, name, attn in self._down_plan:
+            if kind == "block":
+                h = getattr(self, name)(hs[-1], temb)
+                if attn is not None:
+                    h = getattr(self, attn)(h)
+                hs.append(h)
+            else:  # downsample
+                hs.append(getattr(self, name)(hs[-1]))
+
+        h = hs[-1]
+        h = self.mid_block0(h, temb)
+        h = self.mid_attn(h)
+        h = self.mid_block1(h, temb)
+
+        for kind, name in self._up_plan:
+            if kind == "block":
+                h = getattr(self, name)(h, temb, skip=hs.pop())
+            else:  # attention or upsample
+                h = getattr(self, name)(h)
+        h = act(self.norm_out(h))
+        return self.conv_out(h)
+
+
+@register_model(name="ddpm_paired")
+class DDPMPaired(nn.Module):
+    """Joint score of (x, y): concat on channels, split the output."""
+
+    def __init__(self, unet: DDPM):
+        super().__init__()
+        self.unet = unet
+
+    @classmethod
+    def from_config(cls, config):
+        d = config.data
+        return cls(DDPM.from_config(config, in_channels=d.shape_x[0] + d.shape_y[0]))
+
+    def forward(self, inputs, cond):
+        x, y = inputs["x"], inputs["y"]
+        xc = x.shape[-1]
+        out = self.unet(torch.cat([x, y], dim=-1), cond)
+        return {"x": out[..., :xc], "y": out[..., xc:]}

@@ -1,0 +1,296 @@
+"""DDPM score-network layers in PyTorch, NHWC (JAX `models/layers.py`).
+
+Activations stay NHWC as in the JAX package: dense layers act on the last
+axis, and a conv runs `F.conv2d` on the NCHW view of the NHWC tensor (a
+channels-last tensor to cuDNN), so no layout copy is made between layers.
+
+Every module keeps the JAX module's name and its parameters' names map
+one to one onto the Flax tree (`models/convert.py`): ``kernel`` ->
+``weight`` (conv OIHW, dense (out, in)), GroupNorm ``scale`` -> ``weight``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.fused_tail import conv3x3_nhwc, group_norm_stats, gn_silu_conv3x3
+
+
+def default_init_(weight: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """DDPM initialization: variance scaling, fan_avg, uniform (JAX
+    `default_init`).  ``weight`` in PyTorch layout (conv OIHW, dense
+    (out, in))."""
+    scale = 1e-10 if scale == 0 else scale
+    receptive = math.prod(weight.shape[2:])
+    fan_in, fan_out = weight.shape[1] * receptive, weight.shape[0] * receptive
+    limit = math.sqrt(3.0 * scale / ((fan_in + fan_out) / 2.0))
+    with torch.no_grad():
+        return weight.uniform_(-limit, limit)
+
+
+def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int, max_positions: int = 10000):
+    """Transformer sinusoidal embedding, float32."""
+    if timesteps.ndim != 1:
+        raise ValueError("timesteps must be 1-D")
+    half_dim = embedding_dim // 2
+    emb = math.log(max_positions) / (half_dim - 1)
+    emb = torch.exp(torch.arange(half_dim, dtype=torch.float32, device=timesteps.device) * -emb)
+    emb = timesteps.float()[:, None] * emb[None, :]
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=1)
+    if embedding_dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+def fused_tail_candidate_policy(h_shape, out_ch: int) -> bool:
+    """The JAX gate of the fused tail: the low-resolution levels, H*W <= 400.
+    Kept as it is so the port fires its kernel where the JAX package fires
+    Pallas."""
+    B, H, W, C = h_shape
+    return H * W <= 400
+
+
+def legacy_num_groups(ch: int) -> int:
+    """DDPM-era GroupNorm(32) with a gcd fallback for tiny channel counts."""
+    return 32 if ch % 32 == 0 else math.gcd(ch, 32)
+
+
+class Dense(nn.Module):
+    """`nn.Dense` over the last axis with DDPM init."""
+
+    def __init__(self, in_dim: int, out_dim: int, init_scale: float = 1.0):
+        super().__init__()
+        self.weight = nn.Parameter(default_init_(torch.empty(out_dim, in_dim), init_scale))
+        self.bias = nn.Parameter(torch.zeros(out_dim))
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+
+class Conv3x3(nn.Module):
+    """3x3 conv with DDPM init, NHWC in and out, OIHW weight."""
+
+    def __init__(self, in_ch: int, out_ch: int, init_scale: float = 1.0, stride: int = 1, padding: int = 1):
+        super().__init__()
+        self.weight = nn.Parameter(default_init_(torch.empty(out_ch, in_ch, 3, 3), init_scale))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+        self.stride, self.padding = stride, padding
+
+    def forward(self, x):
+        return conv3x3_nhwc(x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.stride, self.padding)
+
+
+class NIN(nn.Module):
+    """Network-in-network: a dense layer over the channel axis (param
+    ``dense``)."""
+
+    def __init__(self, in_dim: int, num_units: int, init_scale: float = 0.1):
+        super().__init__()
+        self.dense = Dense(in_dim, num_units, init_scale)
+
+    def forward(self, x):
+        return self.dense(x)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over the last axis of NHWC data, statistics in float32."""
+
+    def __init__(self, num_channels: int, num_groups: int, eps: float = 1e-6):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x):
+        mean, rstd = group_norm_stats(x, self.num_groups, self.eps)
+        scale = rstd * self.weight
+        shift = self.bias - mean * scale
+        return torch.addcmul(shift[:, None, None, :], x, scale[:, None, None, :]).to(x.dtype)
+
+
+def legacy_group_norm(ch: int) -> GroupNorm:
+    """DDPM-era GroupNorm: 32 groups (gcd fallback), eps 1e-6."""
+    return GroupNorm(ch, legacy_num_groups(ch))
+
+
+class SplitGroupNorm(GroupNorm):
+    """GroupNorm over cat(a, b) without making the concat.  Group statistics
+    come from per-channel partial moments of each half (one-pass mean and
+    mean of squares, as the JAX module).  Returns the two normalized halves."""
+
+    def forward(self, a, b):
+        ca, c = a.shape[-1], a.shape[-1] + b.shape[-1]
+        g = self.num_groups
+        gs = c // g
+        n = float(a.shape[1] * a.shape[2] * gs)
+
+        def moments(x):
+            xf = x.float()
+            return xf.sum(dim=(1, 2)), (xf * xf).sum(dim=(1, 2))  # (B, Cx)
+
+        sa, qa = moments(a)
+        sb, qb = moments(b)
+        s = torch.cat([sa, sb], -1).reshape(sa.shape[0], g, gs).sum(-1)
+        q = torch.cat([qa, qb], -1).reshape(sa.shape[0], g, gs).sum(-1)
+        mu = s / n
+        var = q / n - mu * mu
+        inv = torch.rsqrt(var + self.eps)
+        mu_c = mu.repeat_interleave(gs, dim=-1)[:, None, None, :]
+        inv_c = inv.repeat_interleave(gs, dim=-1)[:, None, None, :]
+
+        def norm(x, lo, hi):
+            y = (x.float() - mu_c[..., lo:hi]) * inv_c[..., lo:hi] * self.weight[lo:hi] + self.bias[lo:hi]
+            return y.to(x.dtype)
+
+        return norm(a, 0, ca), norm(b, ca, c)
+
+
+class SplitConv3x3(Conv3x3):
+    """3x3 conv over cat(a, b): ``conv(a, W[:, :Ca]) + conv(b, W[:, Ca:])``."""
+
+    def forward(self, a, b):
+        ca = a.shape[-1]
+        w = self.weight.to(a.dtype)
+        out = conv3x3_nhwc(a, w[:, :ca]) + conv3x3_nhwc(b, w[:, ca:])
+        return out + self.bias.to(a.dtype)
+
+
+class SplitNIN(NIN):
+    """`NIN` over cat(a, b) as two matmuls and an add."""
+
+    def forward(self, a, b):
+        ca = a.shape[-1]
+        w = self.dense.weight.to(a.dtype)
+        return F.linear(a, w[:, :ca]) + F.linear(b, w[:, ca:], self.dense.bias.to(a.dtype))
+
+
+class AttnBlock(nn.Module):
+    """DDPM self-attention over pixels (contracted over channels)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.norm = legacy_group_norm(channels)
+        self.q = NIN(channels, channels)
+        self.k = NIN(channels, channels)
+        self.v = NIN(channels, channels)
+        self.out = NIN(channels, channels, init_scale=0.0)
+
+    def forward(self, x):
+        B, H, W, C = x.shape
+        h = self.norm(x)
+        q = self.q(h).reshape(B, H * W, C).float()
+        k = self.k(h).reshape(B, H * W, C).float()
+        v = self.v(h).reshape(B, H * W, C).float()
+        w = torch.softmax(torch.bmm(q, k.transpose(1, 2)) * (int(C) ** (-0.5)), dim=-1)
+        h = torch.bmm(w, v).to(x.dtype).reshape(B, H, W, C)
+        return x + self.out(h)
+
+
+class Upsample(nn.Module):
+    """Nearest x2 upsample and an optional conv."""
+
+    def __init__(self, channels: int, with_conv: bool = False):
+        super().__init__()
+        self.conv = Conv3x3(channels, channels) if with_conv else None
+
+    def forward(self, x):
+        h = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2, mode="nearest").permute(0, 2, 3, 1)
+        return self.conv(h) if self.conv is not None else h
+
+
+class Downsample(nn.Module):
+    """Stride-2 conv after an asymmetric (0, 1) pad, or 2x2 average pool."""
+
+    def __init__(self, channels: int, with_conv: bool = False):
+        super().__init__()
+        self.conv = Conv3x3(channels, channels, stride=2, padding=0) if with_conv else None
+
+    def forward(self, x):
+        if self.conv is not None:
+            return self.conv(F.pad(x, (0, 0, 0, 1, 0, 1)))
+        return F.avg_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+
+
+class ResnetBlockDDPM(nn.Module):
+    """DDPM ResNet block (2D).
+
+    ``split_skip``: when a ``skip`` tensor is passed, compute the block on
+    the virtual concatenation cat(x, skip) (SplitGroupNorm, SplitConv3x3,
+    SplitNIN), with the same parameters as the joint block.
+
+    ``fused_tail``: in eval mode, run the norm1 -> act -> conv1 tail as one
+    `ops.fused_tail.gn_silu_conv3x3` call where the JAX gate
+    :func:`fused_tail_candidate_policy` holds and the activation is SiLU.
+    """
+
+    def __init__(
+        self,
+        act: Callable,
+        in_ch: int,
+        out_ch: Optional[int] = None,
+        temb_dim: Optional[int] = None,
+        conv_shortcut: bool = False,
+        dropout: float = 0.1,
+        split_skip: bool = False,
+        fused_tail: bool = False,
+    ):
+        super().__init__()
+        out_ch = out_ch if out_ch is not None else in_ch
+        self.act, self.out_ch = act, out_ch
+        self.split_skip, self.fused_tail = split_skip, fused_tail
+        G_in = legacy_num_groups(in_ch)
+        self.norm0 = SplitGroupNorm(in_ch, G_in) if split_skip else GroupNorm(in_ch, G_in)
+        self.conv0 = (SplitConv3x3 if split_skip else Conv3x3)(in_ch, out_ch)
+        self.temb_proj = Dense(temb_dim, out_ch) if temb_dim is not None else None
+        self.norm1 = legacy_group_norm(out_ch)
+        self.dropout = nn.Dropout(dropout)
+        self.conv1 = Conv3x3(out_ch, out_ch, init_scale=0.0)
+        if in_ch != out_ch:
+            if conv_shortcut:
+                self.shortcut = (SplitConv3x3 if split_skip else Conv3x3)(in_ch, out_ch)
+            else:
+                self.shortcut = (SplitNIN if split_skip else NIN)(in_ch, out_ch)
+        else:
+            self.shortcut = None
+
+    def gn_act_conv_tail(self, h):
+        """The norm1 -> act -> dropout -> conv1 tail."""
+        if (
+            self.fused_tail
+            and not self.training
+            and self.act is F.silu
+            and fused_tail_candidate_policy(h.shape, self.out_ch)
+        ):
+            return gn_silu_conv3x3(
+                h.contiguous(),
+                self.conv1.weight.to(h.dtype),
+                self.norm1.weight,
+                self.norm1.bias,
+                self.norm1.num_groups,
+                bias=self.conv1.bias,
+            )
+        h = self.dropout(self.act(self.norm1(h)))
+        return self.conv1(h)
+
+    def forward(self, x, temb=None, skip=None):
+        if skip is not None and not self.split_skip:
+            x = torch.cat([x, skip], dim=-1)
+            skip = None
+        if skip is None:
+            h = self.conv0(self.act(self.norm0(x)))
+        else:
+            na, nb = self.norm0(x, skip)
+            h = self.conv0(self.act(na), self.act(nb))
+        if temb is not None:
+            h = h + self.temb_proj(self.act(temb))[:, None, None, :]
+        h = self.gn_act_conv_tail(h)
+        if self.shortcut is not None:
+            x = self.shortcut(x, skip) if skip is not None else self.shortcut(x)
+        elif skip is not None:  # identity residual needs the real concat
+            x = torch.cat([x, skip], dim=-1)
+        return x + h

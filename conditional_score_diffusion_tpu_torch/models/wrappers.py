@@ -1,0 +1,65 @@
+"""Score-function wrappers: raw network output -> time-dependent score
+(JAX `models/wrappers.py`; the continuous VE and multi-speed branches).
+
+The model is fed ``labels = t * (N - 1)`` and its output is divided by the
+marginal std of each domain.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..sde import VESDE, batch_mul, is_multispeed
+
+
+def get_model_fn(model: torch.nn.Module, train: bool = False) -> Callable:
+    """``model_fn(inputs, labels)``: the raw network (``inputs`` a tensor or a
+    dict of tensors), in train or eval mode, without autograd in eval."""
+    model.train(train)
+
+    def model_fn(inputs, labels):
+        with torch.set_grad_enabled(train):
+            return model(inputs, labels)
+
+    return model_fn
+
+
+def _divide_by_std_continuous(h, t, sde):
+    if is_multispeed(sde) and isinstance(h, dict):
+        return {
+            domain: batch_mul(1.0 / sde[domain].marginal_prob(None, t)[1], h[domain])
+            for domain in h
+        }
+    return batch_mul(1.0 / sde.marginal_prob(None, t)[1], h)
+
+
+def get_score_fn(sde, model, conditional: bool = False, train: bool = False, continuous: bool = False) -> Callable:
+    """``score_fn(inputs, t)`` of a conditional model under a continuous-time
+    multi-speed VE (or single VE) SDE; ``inputs`` is ``{'x': ..., 'y': ...}``
+    and ``t`` a per-batch time vector in [0, T]."""
+    if not (conditional and continuous):
+        raise NotImplementedError("only the conditional continuous-time score is ported")
+    if not (is_multispeed(sde) or isinstance(sde, VESDE)):
+        raise NotImplementedError(f"SDE {type(sde).__name__} is not ported")
+    model_fn = get_model_fn(model, train=train)
+    N = sde["x"].N if is_multispeed(sde) else sde.N
+
+    def score_fn(inputs, t):
+        h = model_fn(inputs, t * (N - 1))
+        return _divide_by_std_continuous(h, t, sde)
+
+    return score_fn
+
+
+def get_conditional_score_fn(score_fn: Callable, target_domain: str = "x") -> Callable:
+    """Project a dict score onto one domain: ``fn(x, y, t)``."""
+
+    def conditional_score_fn(x, y, t):
+        score = score_fn({"x": x, "y": y}, t)
+        if isinstance(score, dict):
+            return score[target_domain]
+        return score
+
+    return conditional_score_fn

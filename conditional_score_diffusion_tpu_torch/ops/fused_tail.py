@@ -1,0 +1,196 @@
+"""Fused GroupNorm -> SiLU -> 3x3 conv (+ bias, + temb): the resblock tail.
+
+Port of `conditional_score_diffusion_tpu/ops/fused_block_pallas.py`:
+`group_norm_stats` (:44) and `gn_silu_conv3x3_nhwc` (:593), whose Pallas
+kernel is `gn_silu_conv3x3_hmajor` (:107).  The CUDA kernel is
+`csrc/gn_silu_conv3x3.cu` (its header says what bounds it on the card and
+what its design does about that).  It is built with nvcc for sm_90a into
+`_build/` at first use and called through ctypes.
+
+:func:`gn_silu_conv3x3` takes the kernel for a CUDA tensor and the plain
+version :func:`gn_silu_conv3x3_plain` for a CPU tensor; there is no other
+path.  ``gn_silu_conv3x3.launches`` counts the kernel's launches.
+
+Layouts: ``x`` NHWC, ``w`` OIHW (PyTorch's conv layout; the JAX function
+takes HWIO), ``gamma``/``beta`` (Cin,), ``bias`` (Cout,), ``temb`` (B, Cout).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+GN_EPS = 1e-6  # GroupNorm epsilon of the DDPM resblock
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "gn_silu_conv3x3.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def group_norm_stats(x: torch.Tensor, num_groups: int, eps: float = GN_EPS):
+    """Per-(batch, channel) GroupNorm ``(mean, rstd)`` of NHWC ``x``, float32,
+    each of shape (B, C)."""
+    B, H, W, C = x.shape
+    xg = x.float().reshape(B, H * W, num_groups, C // num_groups)
+    var, mean = torch.var_mean(xg, dim=(1, 3), unbiased=False)
+    rstd = torch.rsqrt(var + eps)
+    return (
+        mean.repeat_interleave(C // num_groups, dim=1),
+        rstd.repeat_interleave(C // num_groups, dim=1),
+    )
+
+
+def conv3x3_nhwc(x: torch.Tensor, w: torch.Tensor, bias=None, stride: int = 1, padding: int = 1):
+    """3x3 conv of NHWC ``x`` with OIHW ``w``; NHWC out."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, bias, stride=stride, padding=padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def gn_silu_conv3x3_plain(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    num_groups: int,
+    bias: Optional[torch.Tensor] = None,
+    temb: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The same function in plain PyTorch: float32 GroupNorm and SiLU, the
+    activation rounded to ``x.dtype``, then ``F.conv2d`` (padding 1) in
+    ``x.dtype``, then bias and temb added in float32; out in ``x.dtype``."""
+    mean, rstd = group_norm_stats(x, num_groups)
+    scale = rstd * gamma.float()
+    shift = beta.float() - mean * scale
+    h = x.float() * scale[:, None, None, :] + shift[:, None, None, :]
+    h = F.silu(h).to(x.dtype)
+    y = conv3x3_nhwc(h, w.to(x.dtype)).float()
+    if bias is not None:
+        y = y + bias.float()
+    if temb is not None:
+        y = y + temb.float()[:, None, None, :]
+    return y.to(x.dtype)
+
+
+class KernelLibrary(NamedTuple):
+    lib: ctypes.CDLL
+    path: str
+    build_seconds: float  # 0.0 when an earlier build of the same source was loaded
+    build_log: str
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.isfile(path):
+        raise RuntimeError("nvcc not found: the fused tail kernel needs the CUDA toolkit")
+    return path
+
+
+@functools.cache
+def load_library() -> KernelLibrary:
+    """Build ``csrc/gn_silu_conv3x3.cu`` (once per source content) and load it."""
+    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    path = BUILD_DIR / f"libgn_silu_conv3x3-{digest}.so"
+    seconds, log = 0.0, ""
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(str(path))
+    lib.gn_silu_conv3x3_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p
+    ]
+    lib.gn_silu_conv3x3_launch.restype = ctypes.c_int
+    lib.gn_silu_conv3x3_error_string.argtypes = [ctypes.c_int]
+    lib.gn_silu_conv3x3_error_string.restype = ctypes.c_char_p
+    return KernelLibrary(lib, str(path), seconds, log)
+
+
+def _check(name, t, device, dtype, shape):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, x on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def gn_silu_conv3x3(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    num_groups: int,
+    bias: Optional[torch.Tensor] = None,
+    temb: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``conv3x3(silu(GroupNorm(x))) (+ bias) (+ temb)``, NHWC.
+
+    CPU tensors take :func:`gn_silu_conv3x3_plain`.  CUDA tensors launch the
+    kernel or raise: ``x`` and ``w`` float32 or bfloat16 (the same),
+    ``gamma``, ``beta``, ``bias``, ``temb`` float32, all contiguous.
+    """
+    if x.device.type == "cpu":
+        return gn_silu_conv3x3_plain(x, w, gamma, beta, num_groups, bias, temb)
+    if x.device.type != "cuda":
+        raise ValueError(f"gn_silu_conv3x3 runs on cpu or cuda, not {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.ndim != 4:
+        raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
+    B, H, W, Cin = x.shape
+    Cout = w.shape[0]
+    if Cin % num_groups != 0:
+        raise ValueError(f"{Cin} channels do not split into {num_groups} groups")
+    dev = x.device
+    _check("x", x, dev, x.dtype, (B, H, W, Cin))
+    _check("w", w, dev, x.dtype, (Cout, Cin, 3, 3))
+    _check("gamma", gamma, dev, torch.float32, (Cin,))
+    _check("beta", beta, dev, torch.float32, (Cin,))
+    if bias is not None:
+        _check("bias", bias, dev, torch.float32, (Cout,))
+    if temb is not None:
+        _check("temb", temb, dev, torch.float32, (B, Cout))
+
+    lib = load_library().lib
+    out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=dev)
+    scale_shift = torch.empty((2, B, Cin), dtype=torch.float32, device=dev)
+    err = lib.gn_silu_conv3x3_launch(
+        x.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if temb is None else temb.data_ptr(),
+        out.data_ptr(), scale_shift.data_ptr(),
+        B, H, W, Cin, Cout, num_groups, _DTYPES[x.dtype],
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        msg = lib.gn_silu_conv3x3_error_string(err).decode()
+        raise RuntimeError(f"gn_silu_conv3x3 launch failed: CUDA error {err} ({msg})")
+    gn_silu_conv3x3.launches += 1
+    return out
+
+
+gn_silu_conv3x3.launches = 0

@@ -1,0 +1,82 @@
+"""Shared toy setup of the PyTorch-port parity tests (tests/test_torch_*.py).
+
+The flagship CMDE recipe at toy size: 32px, nf=32, ch_mult (1, 2, 2), one
+resblock per level, attention at 16.  The fused-tail gate (H*W <= 400) then
+fires at 16x16 and 8x8 and is skipped at 32x32.  Inputs and weights are made
+with numpy from a seed and handed to both frameworks.
+"""
+
+import numpy as np
+
+TOY_SIZE = 32
+
+
+def shrink(config):
+    """Cut a flagship recipe (ml_collections or the port's Config) to toy size."""
+    s = TOY_SIZE
+    config.data.image_size = s
+    config.data.effective_image_size = s
+    config.data.target_resolution = s
+    config.data.shape_x = [3, s, s]
+    config.data.shape_y = [3, s, s]
+    config.model.nf = 32
+    config.model.ch_mult = (1, 2, 2)
+    config.model.num_res_blocks = 1
+    config.model.attn_resolutions = (16,)
+    return config
+
+
+def jax_toy_config(fused_tail: bool):
+    from conditional_score_diffusion_tpu.configs.celeba_sr import celeba_sr_160_config
+
+    config = shrink(celeba_sr_160_config("ours_NDV"))
+    config.model.fused_tail = fused_tail
+    return config
+
+
+def torch_toy_config(fused_tail: bool):
+    from conditional_score_diffusion_tpu_torch.configs import celeba_sr_160_config
+
+    config = shrink(celeba_sr_160_config("ours_NDV"))
+    config.model.fused_tail = fused_tail
+    return config
+
+
+def reset_jax_dispatch():
+    """`create_model` sets process-global lowering policies in the JAX
+    package; put them back to their defaults so no other test sees them."""
+    from conditional_score_diffusion_tpu.models import layers
+
+    layers.set_conv_dispatch(None)
+    layers.set_fused_gn_conv_dispatch(None)
+    layers.set_fused_block_dispatch(None)
+
+
+def randomize_params(params, seed: int = 1):
+    """Flax params (nested dicts) with every leaf redrawn by numpy: GroupNorm
+    scales near 1, everything else N(0, 0.05).  Returns numpy arrays."""
+    rng = np.random.RandomState(seed)
+
+    def walk(tree):
+        out = {}
+        for k in sorted(tree):
+            v = tree[k]
+            if isinstance(v, dict) or hasattr(v, "items"):
+                out[k] = walk(dict(v))
+                continue
+            shape = np.shape(v)
+            if k == "scale":
+                out[k] = (1.0 + 0.1 * rng.randn(*shape)).astype(np.float32)
+            else:
+                out[k] = (0.05 * rng.randn(*shape)).astype(np.float32)
+        return out
+
+    return walk(dict(params))
+
+
+def toy_inputs(batch: int = 2, seed: int = 0):
+    rng = np.random.RandomState(seed)
+    x = rng.rand(batch, TOY_SIZE, TOY_SIZE, 3).astype(np.float32)
+    y = rng.rand(batch, TOY_SIZE, TOY_SIZE, 3).astype(np.float32)
+    t = rng.uniform(0.05, 1.0, size=(batch,)).astype(np.float32)
+    return x, y, t

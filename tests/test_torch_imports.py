@@ -1,0 +1,53 @@
+"""The port and chip_smoke.py import nothing of JAX nor of the JAX package.
+
+A subprocess installs an import hook that refuses jax, flax, optax,
+ml_collections, absl and conditional_score_diffusion_tpu, then imports every
+module of the port and chip_smoke (as a module; its main does not run).
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax  # noqa: F401  (the parity files import both frameworks)
+import torch
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent(
+    """
+    import importlib, importlib.abc, pkgutil, sys
+
+    REFUSED = {"jax", "jaxlib", "flax", "optax", "ml_collections", "absl",
+               "conditional_score_diffusion_tpu"}
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in REFUSED:
+                raise ImportError("refused import of " + name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    import conditional_score_diffusion_tpu_torch as pkg
+    names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+    assert not loaded, loaded
+    print(len(names), "modules")
+    """
+)
+
+
+def test_port_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    n = int(proc.stdout.split()[0])
+    assert n >= 20, proc.stdout
