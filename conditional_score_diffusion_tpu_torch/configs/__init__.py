@@ -3,5 +3,12 @@
 from .base import Config, base_config
 from .celeba_sr import celeba_sr_160_config
 from .texture160_sr_cmde import get_config as texture160_sr_cmde_config
+from .texture160_sr_cmde_bf16_block import get_config as texture160_sr_cmde_bf16_block_config
 
-__all__ = ["Config", "base_config", "celeba_sr_160_config", "texture160_sr_cmde_config"]
+__all__ = [
+    "Config",
+    "base_config",
+    "celeba_sr_160_config",
+    "texture160_sr_cmde_bf16_block_config",
+    "texture160_sr_cmde_config",
+]

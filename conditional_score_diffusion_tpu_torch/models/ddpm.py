@@ -54,6 +54,7 @@ class DDPM(nn.Module):
         nonlinearity: str = "swish",
         split_skip_convs: bool = False,
         fused_tail: bool = False,
+        fused_block: bool = False,
     ):
         super().__init__()
         self.act = act = _ACTS[nonlinearity]
@@ -67,7 +68,7 @@ class DDPM(nn.Module):
         def resblock(in_ch, out_ch, split=False):
             return ResnetBlockDDPM(
                 act, in_ch, out_ch, temb_dim=temb_dim, dropout=dropout,
-                split_skip=split, fused_tail=fused_tail,
+                split_skip=split, fused_tail=fused_tail, fused_block=fused_block,
             )
 
         # The encoder and decoder are fixed sequences of (kind, name) steps,
@@ -134,6 +135,7 @@ class DDPM(nn.Module):
             nonlinearity=m.nonlinearity.lower(),
             split_skip_convs=m.get("split_skip_convs", True),
             fused_tail=m.get("fused_tail", False),
+            fused_block=m.get("fused_block", False),
         )
 
     def forward(self, x, cond):

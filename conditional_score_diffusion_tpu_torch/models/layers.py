@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.fused_block import resblock_fused, resblock_fused_split
 from ..ops.fused_tail import conv3x3_nhwc, group_norm_stats, gn_silu_conv3x3
 
 
@@ -53,6 +54,34 @@ def fused_tail_candidate_policy(h_shape, out_ch: int) -> bool:
     Pallas."""
     B, H, W, C = h_shape
     return H * W <= 400
+
+
+def fused_block_candidate_policy(h_shape, out_ch: int) -> bool:
+    """The JAX gate of the whole-resblock kernels: 10x10 and smaller,
+    max(H, W) <= 10.  Kept as it is, as the tail gate is."""
+    B, H, W, C = h_shape
+    return max(H, W) <= 10
+
+
+def fused_block_applicable(x, act, train: bool, skip, out_ch: int, enabled: bool) -> bool:
+    """Gate of the block kernel (JAX `fused_block_applicable`): on, eval,
+    no skip, SiLU, and the shape gate on ``x``."""
+    return (
+        enabled
+        and not train
+        and skip is None
+        and act is F.silu
+        and fused_block_candidate_policy(x.shape, out_ch)
+    )
+
+
+def fused_split_block_applicable(x, skip, act, train: bool, out_ch: int, enabled: bool) -> bool:
+    """Gate of the split kernel (JAX `fused_split_block_applicable`): the
+    same on the shape of the concat cat(x, skip)."""
+    if not enabled or train or skip is None or act is not F.silu:
+        return False
+    concat_shape = tuple(x.shape[:-1]) + (x.shape[-1] + skip.shape[-1],)
+    return fused_block_candidate_policy(concat_shape, out_ch)
 
 
 def legacy_num_groups(ch: int) -> int:
@@ -226,6 +255,13 @@ class ResnetBlockDDPM(nn.Module):
     ``fused_tail``: in eval mode, run the norm1 -> act -> conv1 tail as one
     `ops.fused_tail.gn_silu_conv3x3` call where the JAX gate
     :func:`fused_tail_candidate_policy` holds and the activation is SiLU.
+
+    ``fused_block``: in eval mode, run the whole block as one
+    `ops.fused_block.resblock_fused` call (no skip) or
+    `resblock_fused_split` call (on cat(x, skip)) where
+    :func:`fused_block_candidate_policy` holds, the activation is SiLU and
+    the shortcut is the identity or the NIN (JAX `ResnetBlockDDPM`); there
+    it wins over the tail.  The parameters are the unfused block's.
     """
 
     def __init__(
@@ -238,11 +274,12 @@ class ResnetBlockDDPM(nn.Module):
         dropout: float = 0.1,
         split_skip: bool = False,
         fused_tail: bool = False,
+        fused_block: bool = False,
     ):
         super().__init__()
         out_ch = out_ch if out_ch is not None else in_ch
-        self.act, self.out_ch = act, out_ch
-        self.split_skip, self.fused_tail = split_skip, fused_tail
+        self.act, self.in_ch, self.out_ch, self.conv_shortcut = act, in_ch, out_ch, conv_shortcut
+        self.split_skip, self.fused_tail, self.fused_block = split_skip, fused_tail, fused_block
         G_in = legacy_num_groups(in_ch)
         self.norm0 = SplitGroupNorm(in_ch, G_in) if split_skip else GroupNorm(in_ch, G_in)
         self.conv0 = (SplitConv3x3 if split_skip else Conv3x3)(in_ch, out_ch)
@@ -266,21 +303,49 @@ class ResnetBlockDDPM(nn.Module):
             and self.act is F.silu
             and fused_tail_candidate_policy(h.shape, self.out_ch)
         ):
+            # the kernel takes its vectors in float32, whatever the compute dtype
             return gn_silu_conv3x3(
                 h.contiguous(),
                 self.conv1.weight.to(h.dtype),
-                self.norm1.weight,
-                self.norm1.bias,
+                self.norm1.weight.float(),
+                self.norm1.bias.float(),
                 self.norm1.num_groups,
-                bias=self.conv1.bias,
+                bias=self.conv1.bias.float(),
             )
         h = self.dropout(self.act(self.norm1(h)))
         return self.conv1(h)
+
+    def fused_block_args(self, dtype, temb) -> dict:
+        """The block's parameters as the whole-block kernels take them:
+        weights in the compute ``dtype``, vectors and the temb projection
+        (computed here, as in JAX) in float32, the NIN as a (Cin, Cout)
+        matrix."""
+        ws = bs = None
+        if self.shortcut is not None:
+            ws = self.shortcut.dense.weight.t().to(dtype).contiguous()
+            bs = self.shortcut.dense.bias.float()
+        return dict(
+            gamma0=self.norm0.weight.float(), beta0=self.norm0.bias.float(),
+            num_groups0=self.norm0.num_groups,
+            w0=self.conv0.weight.to(dtype), b0=self.conv0.bias.float(),
+            temb_proj=None if temb is None else self.temb_proj(self.act(temb)).float(),
+            gamma1=self.norm1.weight.float(), beta1=self.norm1.bias.float(),
+            num_groups1=self.norm1.num_groups,
+            w1=self.conv1.weight.to(dtype), b1=self.conv1.bias.float(),
+            shortcut_w=ws, shortcut_b=bs,
+        )
 
     def forward(self, x, temb=None, skip=None):
         if skip is not None and not self.split_skip:
             x = torch.cat([x, skip], dim=-1)
             skip = None
+        if self.in_ch == self.out_ch or not self.conv_shortcut:
+            if fused_block_applicable(x, self.act, self.training, skip, self.out_ch, self.fused_block):
+                return resblock_fused(x.contiguous(), **self.fused_block_args(x.dtype, temb))
+            if fused_split_block_applicable(x, skip, self.act, self.training, self.out_ch, self.fused_block):
+                return resblock_fused_split(
+                    x.contiguous(), skip.contiguous(), **self.fused_block_args(x.dtype, temb)
+                )
         if skip is None:
             h = self.conv0(self.act(self.norm0(x)))
         else:

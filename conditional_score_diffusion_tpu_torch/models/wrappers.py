@@ -7,21 +7,43 @@ marginal std of each domain.
 
 from __future__ import annotations
 
-from typing import Callable
+import copy
+from typing import Callable, Optional
 
 import torch
 
 from ..sde import VESDE, batch_mul, is_multispeed
 
 
-def get_model_fn(model: torch.nn.Module, train: bool = False) -> Callable:
+def _map(fn, tree):
+    return {k: fn(v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+def get_model_fn(
+    model: torch.nn.Module, train: bool = False, compute_dtype: Optional[torch.dtype] = None
+) -> Callable:
     """``model_fn(inputs, labels)``: the raw network (``inputs`` a tensor or a
-    dict of tensors), in train or eval mode, without autograd in eval."""
+    dict of tensors), in train or eval mode, without autograd in eval.
+
+    ``compute_dtype`` (e.g. ``torch.bfloat16``): run a copy of ``model``
+    with its parameters cast to that type (the caller's module is left as
+    it is), cast the inputs to it, and cast the outputs back to float32, so
+    the score division and all sampler math stay float32.  ``labels`` are
+    not cast: the timestep embedding is taken in float32 and then cast to
+    the activations' type.
+    """
+    if compute_dtype is not None:
+        model = copy.deepcopy(model).to(compute_dtype)
     model.train(train)
 
     def model_fn(inputs, labels):
+        if compute_dtype is not None:
+            inputs = _map(lambda x: x.to(compute_dtype), inputs)
         with torch.set_grad_enabled(train):
-            return model(inputs, labels)
+            out = model(inputs, labels)
+        if compute_dtype is not None:
+            out = _map(lambda x: x.float(), out)
+        return out
 
     return model_fn
 
@@ -35,15 +57,23 @@ def _divide_by_std_continuous(h, t, sde):
     return batch_mul(1.0 / sde.marginal_prob(None, t)[1], h)
 
 
-def get_score_fn(sde, model, conditional: bool = False, train: bool = False, continuous: bool = False) -> Callable:
+def get_score_fn(
+    sde,
+    model,
+    conditional: bool = False,
+    train: bool = False,
+    continuous: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> Callable:
     """``score_fn(inputs, t)`` of a conditional model under a continuous-time
     multi-speed VE (or single VE) SDE; ``inputs`` is ``{'x': ..., 'y': ...}``
-    and ``t`` a per-batch time vector in [0, T]."""
+    and ``t`` a per-batch time vector in [0, T].  ``compute_dtype`` as in
+    :func:`get_model_fn`."""
     if not (conditional and continuous):
         raise NotImplementedError("only the conditional continuous-time score is ported")
     if not (is_multispeed(sde) or isinstance(sde, VESDE)):
         raise NotImplementedError(f"SDE {type(sde).__name__} is not ported")
-    model_fn = get_model_fn(model, train=train)
+    model_fn = get_model_fn(model, train=train, compute_dtype=compute_dtype)
     N = sde["x"].N if is_multispeed(sde) else sde.N
 
     def score_fn(inputs, t):

@@ -4,12 +4,13 @@ Port of `conditional_score_diffusion_tpu/ops/fused_block_pallas.py`:
 `group_norm_stats` (:44) and `gn_silu_conv3x3_nhwc` (:593), whose Pallas
 kernel is `gn_silu_conv3x3_hmajor` (:107).  The CUDA kernel is
 `csrc/gn_silu_conv3x3.cu` (its header says what bounds it on the card and
-what its design does about that).  It is built with nvcc for sm_90a into
-`_build/` at first use and called through ctypes.
+what its design does about that).  `ops/nvcc.py` builds it for sm_90a into
+`_build/` at first use; it is called through ctypes.
 
 :func:`gn_silu_conv3x3` takes the kernel for a CUDA tensor and the plain
-version :func:`gn_silu_conv3x3_plain` for a CPU tensor; there is no other
-path.  ``gn_silu_conv3x3.launches`` counts the kernel's launches.
+version :func:`gn_silu_conv3x3_plain` for a CPU tensor, after the same
+checks of its arguments on both; there is no other path.
+``gn_silu_conv3x3.launches`` counts the kernel's launches.
 
 Layouts: ``x`` NHWC, ``w`` OIHW (PyTorch's conv layout; the JAX function
 takes HWIO), ``gamma``/``beta`` (Cin,), ``bias`` (Cout,), ``temb`` (B, Cout).
@@ -19,27 +20,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-GN_EPS = 1e-6  # GroupNorm epsilon of the DDPM resblock
+from . import nvcc
+from .nvcc import KernelLibrary
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "gn_silu_conv3x3.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+GN_EPS = 1e-6  # GroupNorm epsilon of the DDPM resblock
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernels' dtype codes
 
 
 def group_norm_stats(x: torch.Tensor, num_groups: int, eps: float = GN_EPS):
@@ -71,14 +61,15 @@ def gn_silu_conv3x3_plain(
     temb: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The same function in plain PyTorch: float32 GroupNorm and SiLU, the
-    activation rounded to ``x.dtype``, then ``F.conv2d`` (padding 1) in
-    ``x.dtype``, then bias and temb added in float32; out in ``x.dtype``."""
+    activation and ``w`` rounded to ``x.dtype``, their products summed in
+    float32 (``F.conv2d``, padding 1), then bias and temb added in float32;
+    out in ``x.dtype``, rounded once, as the kernel does."""
     mean, rstd = group_norm_stats(x, num_groups)
     scale = rstd * gamma.float()
     shift = beta.float() - mean * scale
     h = x.float() * scale[:, None, None, :] + shift[:, None, None, :]
-    h = F.silu(h).to(x.dtype)
-    y = conv3x3_nhwc(h, w.to(x.dtype)).float()
+    h = F.silu(h).to(x.dtype).float()
+    y = conv3x3_nhwc(h, w.to(x.dtype).float())
     if bias is not None:
         y = y + bias.float()
     if temb is not None:
@@ -86,48 +77,22 @@ def gn_silu_conv3x3_plain(
     return y.to(x.dtype)
 
 
-class KernelLibrary(NamedTuple):
-    lib: ctypes.CDLL
-    path: str
-    build_seconds: float  # 0.0 when an earlier build of the same source was loaded
-    build_log: str
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if not os.path.isfile(path):
-        raise RuntimeError("nvcc not found: the fused tail kernel needs the CUDA toolkit")
-    return path
-
-
 @functools.cache
 def load_library() -> KernelLibrary:
     """Build ``csrc/gn_silu_conv3x3.cu`` (once per source content) and load it."""
-    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    path = BUILD_DIR / f"libgn_silu_conv3x3-{digest}.so"
-    seconds, log = 0.0, ""
-    if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(str(path))
-    lib.gn_silu_conv3x3_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+    built = nvcc.build("gn_silu_conv3x3")
+    built.lib.gn_silu_conv3x3_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p
     ]
-    lib.gn_silu_conv3x3_launch.restype = ctypes.c_int
-    lib.gn_silu_conv3x3_error_string.argtypes = [ctypes.c_int]
-    lib.gn_silu_conv3x3_error_string.restype = ctypes.c_char_p
-    return KernelLibrary(lib, str(path), seconds, log)
+    built.lib.gn_silu_conv3x3_launch.restype = ctypes.c_int
+    built.lib.gn_silu_conv3x3_error_string.argtypes = [ctypes.c_int]
+    built.lib.gn_silu_conv3x3_error_string.restype = ctypes.c_char_p
+    return built
 
 
-def _check(name, t, device, dtype, shape):
+def check_arg(name, t, device, dtype, shape):
+    """Raise unless ``t`` is on ``device``, of ``dtype`` and ``shape``, and
+    contiguous: what a kernel of the port takes."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x on {device}")
     if t.dtype != dtype:
@@ -136,6 +101,16 @@ def _check(name, t, device, dtype, shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_input(fn_name: str, x: torch.Tensor) -> None:
+    """The device, dtype and rank every kernel wrapper asks of its NHWC input."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn_name} runs on cpu or cuda, not {x.device}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.ndim != 4:
+        raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
 
 
 def gn_silu_conv3x3(
@@ -149,31 +124,27 @@ def gn_silu_conv3x3(
 ) -> torch.Tensor:
     """``conv3x3(silu(GroupNorm(x))) (+ bias) (+ temb)``, NHWC.
 
-    CPU tensors take :func:`gn_silu_conv3x3_plain`.  CUDA tensors launch the
-    kernel or raise: ``x`` and ``w`` float32 or bfloat16 (the same),
-    ``gamma``, ``beta``, ``bias``, ``temb`` float32, all contiguous.
+    Takes ``x`` and ``w`` float32 or bfloat16 (the same), ``gamma``,
+    ``beta``, ``bias``, ``temb`` float32, all contiguous, and raises on
+    anything else, on either device.  CPU tensors then take
+    :func:`gn_silu_conv3x3_plain`; CUDA tensors launch the kernel.
     """
-    if x.device.type == "cpu":
-        return gn_silu_conv3x3_plain(x, w, gamma, beta, num_groups, bias, temb)
-    if x.device.type != "cuda":
-        raise ValueError(f"gn_silu_conv3x3 runs on cpu or cuda, not {x.device}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    if x.ndim != 4:
-        raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
+    check_input("gn_silu_conv3x3", x)
     B, H, W, Cin = x.shape
     Cout = w.shape[0]
     if Cin % num_groups != 0:
         raise ValueError(f"{Cin} channels do not split into {num_groups} groups")
     dev = x.device
-    _check("x", x, dev, x.dtype, (B, H, W, Cin))
-    _check("w", w, dev, x.dtype, (Cout, Cin, 3, 3))
-    _check("gamma", gamma, dev, torch.float32, (Cin,))
-    _check("beta", beta, dev, torch.float32, (Cin,))
+    check_arg("x", x, dev, x.dtype, (B, H, W, Cin))
+    check_arg("w", w, dev, x.dtype, (Cout, Cin, 3, 3))
+    check_arg("gamma", gamma, dev, torch.float32, (Cin,))
+    check_arg("beta", beta, dev, torch.float32, (Cin,))
     if bias is not None:
-        _check("bias", bias, dev, torch.float32, (Cout,))
+        check_arg("bias", bias, dev, torch.float32, (Cout,))
     if temb is not None:
-        _check("temb", temb, dev, torch.float32, (B, Cout))
+        check_arg("temb", temb, dev, torch.float32, (B, Cout))
+    if dev.type == "cpu":
+        return gn_silu_conv3x3_plain(x, w, gamma, beta, num_groups, bias, temb)
 
     lib = load_library().lib
     out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=dev)
@@ -183,7 +154,7 @@ def gn_silu_conv3x3(
         None if bias is None else bias.data_ptr(),
         None if temb is None else temb.data_ptr(),
         out.data_ptr(), scale_shift.data_ptr(),
-        B, H, W, Cin, Cout, num_groups, _DTYPES[x.dtype],
+        B, H, W, Cin, Cout, num_groups, DTYPES[x.dtype],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

@@ -1,19 +1,24 @@
 """Where the flagship CMDE sampler's time goes on the card.
 
-    python -m conditional_score_diffusion_tpu_torch.profile_sampler           # on a GPU
-    python -m conditional_score_diffusion_tpu_torch.profile_sampler --count   # anywhere
+    python -m conditional_score_diffusion_tpu_torch.profile_sampler                # on a GPU
+    python -m conditional_score_diffusion_tpu_torch.profile_sampler --path tail    # float32
+    python -m conditional_score_diffusion_tpu_torch.profile_sampler --count        # anywhere
 
 ``--count`` builds the full-width ``ddpm_paired`` on the meta device and
 counts one forward's floating-point operations by layer kind (3x3 convs,
-the gated resblock tails among them, dense layers, attention), from the
-shapes alone.
+the gated resblock tails and the gated whole blocks among them, dense
+layers, attention), from the shapes alone.
 
 Without it, on a CUDA device: the texture160 batch, seeded N(0, 0.02)
 weights, and ``--steps`` sampler steps (2 score evaluations each) timed by
-the host clock after a synchronize, with the fused tail on and off in turns
-(on, off, off, on, ...); then one profiled window of 2 steps with the tail
-on, whose kernels are listed by device time.  TF32 is off, as in the port's
-float32 runs.  The card's name and power limit are printed first.
+the host clock after a synchronize, with the kernels on and off in turns
+(on, off, off, on, ...); then one profiled window of 2 steps with them on
+and one with them off, whose kernels are listed by device time.
+``--path block`` (the default) is the JAX bench's flagship: bfloat16
+compute, ``fused_block`` and ``fused_tail`` (off: both off, still
+bfloat16); ``--path tail`` is the float32 path with ``fused_tail`` alone.
+TF32 is off, as in the port's float32 runs.  The card's name and power
+limit are printed first.
 """
 
 from __future__ import annotations
@@ -26,11 +31,21 @@ import time
 
 import torch
 
-from .configs import texture160_sr_cmde_config
+from .configs import texture160_sr_cmde_bf16_block_config, texture160_sr_cmde_config
 from .data.pkl_datasets import iter_test_batches
 from .models import create_model, init_model_random
-from .models.layers import AttnBlock, Conv3x3, Dense, ResnetBlockDDPM, fused_tail_candidate_policy
-from .sampling import get_conditional_sampling_fn
+from .models.layers import (
+    AttnBlock,
+    Conv3x3,
+    NIN,
+    Dense,
+    ResnetBlockDDPM,
+    SplitNIN,
+    fused_block_candidate_policy,
+    fused_tail_candidate_policy,
+)
+from .models.wrappers import get_conditional_score_fn, get_score_fn
+from .sampling import get_pc_conditional_sampler
 from .sde import build_sde
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -38,20 +53,39 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def count_flops(config, batch: int) -> dict:
     """Operations of one forward, by layer kind, from shapes on the meta device."""
-    config.model.fused_tail = False
+    config.model.fused_tail = config.model.fused_block = False
     model = create_model(config, "meta")
-    counts = {"conv3x3": 0, "conv3x3_gated_tails": 0, "gated_tail_calls": 0, "dense": 0, "attention": 0}
-    tails = {id(m.conv1) for m in model.modules() if isinstance(m, ResnetBlockDDPM)}
+    counts = {
+        "conv3x3": 0, "conv3x3_gated_tails": 0, "gated_tail_calls": 0,
+        "gated_blocks": 0, "gated_block_calls": 0, "dense": 0, "attention": 0,
+    }
+    blocks = [m for m in model.modules() if isinstance(m, ResnetBlockDDPM)]
+    tails = {id(m.conv1) for m in blocks}
+    # the convs and NIN shortcut a whole-block kernel computes
+    in_blocks = {id(c) for m in blocks for c in (m.conv0, m.conv1, m.shortcut) if c is not None}
+    in_blocks |= {id(m.shortcut.dense) for m in blocks if isinstance(m.shortcut, NIN)}
+
+    def block_gated(shape):
+        return fused_block_candidate_policy(shape, shape[-1])
 
     def conv_hook(mod, args, out):
         flops = 2 * out.numel() * mod.weight.shape[1] * 9
         counts["conv3x3"] += flops
-        if id(mod) in tails and fused_tail_candidate_policy(out.shape, out.shape[-1]):
+        if id(mod) in in_blocks and block_gated(out.shape):
+            counts["gated_blocks"] += flops
+        elif id(mod) in tails and fused_tail_candidate_policy(out.shape, out.shape[-1]):
             counts["conv3x3_gated_tails"] += flops
             counts["gated_tail_calls"] += 1
 
     def dense_hook(mod, args, out):
-        counts["dense"] += 2 * out.numel() * mod.weight.shape[1]
+        weight = mod.weight if isinstance(mod, Dense) else mod.dense.weight
+        flops = 2 * out.numel() * weight.shape[1]
+        counts["dense"] += flops
+        if id(mod) in in_blocks and block_gated(out.shape):
+            counts["gated_blocks"] += flops
+
+    def block_hook(mod, args, out):
+        counts["gated_block_calls"] += int(block_gated(out.shape))
 
     def attn_hook(mod, args, out):
         B, H, W, C = out.shape
@@ -61,6 +95,10 @@ def count_flops(config, batch: int) -> dict:
         if isinstance(m, Conv3x3):
             m.register_forward_hook(conv_hook)
         elif isinstance(m, Dense):
+            m.register_forward_hook(dense_hook)
+        elif isinstance(m, ResnetBlockDDPM):
+            m.register_forward_hook(block_hook)
+        elif isinstance(m, SplitNIN):  # computes with F.linear, not through its Dense
             m.register_forward_hook(dense_hook)
         elif isinstance(m, AttnBlock):
             m.register_forward_hook(attn_hook)
@@ -75,15 +113,17 @@ def count_flops(config, batch: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--count", action="store_true", help="count one forward's operations and stop")
+    ap.add_argument("--path", choices=("block", "tail"), default="block", help="which path to time")
     ap.add_argument("--steps", type=int, default=20, help="sampler steps per timed run")
     ap.add_argument("--pairs", type=int, default=3, help="(on, off) pairs of timed runs")
     args = ap.parse_args()
 
-    config = texture160_sr_cmde_config()
+    new_config = texture160_sr_cmde_bf16_block_config if args.path == "block" else texture160_sr_cmde_config
+    config = new_config()
     batch_size = config.eval.batch_size
-    counts = count_flops(texture160_sr_cmde_config(), batch_size)
+    counts = count_flops(new_config(), batch_size)
     print(f"one forward at B={batch_size}: " + ", ".join(
-        f"{k} {v / 1e9:.3f} GFLOP" if k != "gated_tail_calls" else f"{k} {v}" for k, v in counts.items()
+        f"{k} {v}" if k.endswith("_calls") else f"{k} {v / 1e9:.3f} GFLOP" for k, v in counts.items()
     ), flush=True)
     if args.count:
         return 0
@@ -100,18 +140,33 @@ def main() -> int:
 
     config.data.base_dir = os.path.join(REPO, "datasets")
     y = torch.from_numpy(next(iter_test_batches(config))["y"]).cuda()
-    models = {True: init_model_random(config, seed=config.seed, device="cuda")}
-    config_off = texture160_sr_cmde_config()
-    config_off.model.fused_tail = False
-    models[False] = create_model(config_off, "cuda")
-    models[False].load_state_dict(models[True].state_dict())
+    model_on = init_model_random(config, seed=config.seed, device="cuda")
+    config_off = new_config()
+    config_off.model.fused_tail = config_off.model.fused_block = False
+    model_off = create_model(config_off, "cuda")
+    model_off.load_state_dict(model_on.state_dict())
+    compute_dtype = torch.bfloat16 if args.path == "block" else None
     sde, eps = build_sde(config)
-    sample = get_conditional_sampling_fn(config, sde, tuple(y.shape), eps, p_steps=args.steps)
+    scores = {
+        fused: get_conditional_score_fn(
+            get_score_fn(sde, m, conditional=True, continuous=True, compute_dtype=compute_dtype), "x"
+        )
+        for fused, m in ((True, model_on), (False, model_off))
+    }
+    s = config.sampling
+
+    def sampler(p_steps):
+        return get_pc_conditional_sampler(
+            sde, tuple(y.shape), s.predictor, s.corrector, snr=s.snr, p_steps=p_steps,
+            c_steps=s.n_steps_each, denoise=s.noise_removal, eps=eps,
+        )
+
+    sample = sampler(args.steps)
 
     def run(fused):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sample(torch.Generator(device="cuda").manual_seed(0), models[fused], y)
+        sample(torch.Generator(device="cuda").manual_seed(0), scores[fused], y)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / (2 * args.steps) * 1e3
 
@@ -121,34 +176,37 @@ def main() -> int:
         order = (True, False) if i % 2 == 0 else (False, True)
         for fused in order:
             times[fused].append(run(fused))
+    label = "fused_block+fused_tail, bfloat16" if args.path == "block" else "fused_tail, float32"
     for fused in (True, False):
         ts = times[fused]
         print(
-            f"fused_tail={fused}: ms per score evaluation {['%.3f' % t for t in ts]},"
+            f"{label} {'on' if fused else 'off'}: ms per score evaluation {['%.3f' % t for t in ts]},"
             f" median {statistics.median(ts):.3f}",
             flush=True,
         )
 
-    short = get_conditional_sampling_fn(config, sde, tuple(y.shape), eps, p_steps=2)
+    short = sampler(2)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        short(torch.Generator(device="cuda").manual_seed(0), models[True], y)
+    for fused, top in ((True, 25), (False, 12)):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in events)
-    print(
-        f"profiled 2 steps (4 score evaluations): wall {wall * 1e3:.3f} ms, kernels {device_us / 1e3:.3f} ms"
-        f" of device time, busy share {device_us / 1e6 / wall:.3f}",
-        flush=True,
-    )
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            short(torch.Generator(device="cuda").manual_seed(0), scores[fused], y)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(e.self_device_time_total for e in events)
         print(
-            f"  {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x  {e.key[:110]}",
+            f"profiled 2 steps (4 score evaluations), {label} {'on' if fused else 'off'}: wall {wall * 1e3:.3f} ms,"
+            f" kernels {device_us / 1e3:.3f} ms of device time, busy share {device_us / 1e6 / wall:.3f},"
+            f" {sum(e.count for e in events) / 4:.0f} kernel launches per score evaluation",
             flush=True,
         )
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+            print(
+                f"  {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x  {e.key[:110]}",
+                flush=True,
+            )
     return 0
 
 

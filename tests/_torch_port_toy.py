@@ -2,16 +2,23 @@
 
 The flagship CMDE recipe at toy size: 32px, nf=32, ch_mult (1, 2, 2), one
 resblock per level, attention at 16.  The fused-tail gate (H*W <= 400) then
-fires at 16x16 and 8x8 and is skipped at 32x32.  Inputs and weights are made
-with numpy from a seed and handed to both frameworks.
+fires at 16x16 and 8x8 and is skipped at 32x32.  With ch_mult (1, 2, 3)
+(`BLOCK_CH_MULT`) the whole-block gate (max(H, W) <= 10) fires at 8x8 on a
+mix-shortcut block (64 -> 96), two identity blocks and two split blocks,
+one of them on 96 + 64 = 160 channels whose 5-channel groups straddle the
+concat boundary.  Inputs and weights are made with numpy from a seed and
+handed to both frameworks.
 """
 
+import jax
 import numpy as np
+import torch
 
 TOY_SIZE = 32
+BLOCK_CH_MULT = (1, 2, 3)
 
 
-def shrink(config):
+def shrink(config, ch_mult=(1, 2, 2)):
     """Cut a flagship recipe (ml_collections or the port's Config) to toy size."""
     s = TOY_SIZE
     config.data.image_size = s
@@ -20,25 +27,27 @@ def shrink(config):
     config.data.shape_x = [3, s, s]
     config.data.shape_y = [3, s, s]
     config.model.nf = 32
-    config.model.ch_mult = (1, 2, 2)
+    config.model.ch_mult = tuple(ch_mult)
     config.model.num_res_blocks = 1
     config.model.attn_resolutions = (16,)
     return config
 
 
-def jax_toy_config(fused_tail: bool):
+def jax_toy_config(fused_tail: bool, fused_block: bool = False, ch_mult=(1, 2, 2)):
     from conditional_score_diffusion_tpu.configs.celeba_sr import celeba_sr_160_config
 
-    config = shrink(celeba_sr_160_config("ours_NDV"))
+    config = shrink(celeba_sr_160_config("ours_NDV"), ch_mult)
     config.model.fused_tail = fused_tail
+    config.model.fused_block = fused_block
     return config
 
 
-def torch_toy_config(fused_tail: bool):
+def torch_toy_config(fused_tail: bool, fused_block: bool = False, ch_mult=(1, 2, 2)):
     from conditional_score_diffusion_tpu_torch.configs import celeba_sr_160_config
 
-    config = shrink(celeba_sr_160_config("ours_NDV"))
+    config = shrink(celeba_sr_160_config("ours_NDV"), ch_mult)
     config.model.fused_tail = fused_tail
+    config.model.fused_block = fused_block
     return config
 
 
@@ -80,3 +89,35 @@ def toy_inputs(batch: int = 2, seed: int = 0):
     y = rng.rand(batch, TOY_SIZE, TOY_SIZE, 3).astype(np.float32)
     t = rng.uniform(0.05, 1.0, size=(batch,)).astype(np.float32)
     return x, y, t
+
+
+class Replay:
+    """Noise source that hands out recorded draws in order."""
+
+    def __init__(self, draws):
+        self.draws = [np.array(d) for d in draws]
+
+    def __call__(self, shape):
+        z = self.draws.pop(0)
+        assert z.shape == tuple(shape)
+        return torch.from_numpy(z)
+
+
+def jax_sampler_draws(key, p_steps, shape, use_path):
+    """The JAX conditional sampler's draws (`sampling/pc.py:165` and the
+    branches after it, `sampling/correctors.py:37-39`), in the port's order
+    of use."""
+    normal = lambda k: jax.random.normal(k, shape)  # noqa: E731
+    rng, prior = jax.random.split(key)
+    draws = [normal(prior)]
+    if use_path:
+        rng, ry = jax.random.split(rng)
+        draws.append(normal(ry))
+        for _ in range(p_steps):
+            rng, rk, rp, rc = jax.random.split(rng, 4)
+            draws += [normal(rk), normal(rp), normal(jax.random.fold_in(rc, 0))]
+    else:
+        for _ in range(p_steps):
+            rng, ryc, rc, ryp, rp = jax.random.split(rng, 5)
+            draws += [normal(ryc), normal(jax.random.fold_in(rc, 0)), normal(ryp), normal(rp)]
+    return draws

@@ -2,7 +2,8 @@
 
 A subprocess installs an import hook that refuses jax, flax, optax,
 ml_collections, absl and conditional_score_diffusion_tpu, then imports every
-module of the port and chip_smoke (as a module; its main does not run).
+module of the port, chip_smoke (as a module; its main does not run) and the
+card-only test files, which run on a machine without JAX.
 """
 
 import os
@@ -36,9 +37,12 @@ SCRIPT = textwrap.dedent(
     for name in names:
         importlib.import_module(name)
     import chip_smoke
+    sys.path.insert(0, "tests")
+    import test_torch_fused_block_cuda, test_torch_fused_tail_cuda
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
     assert not loaded, loaded
     print(len(names), "modules")
+    print(" ".join(names))
     """
 )
 
@@ -51,3 +55,6 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[0])
     assert n >= 20, proc.stdout
+    names = proc.stdout.splitlines()[1].split()
+    for name in ("ops.fused_block", "ops.fused_tail", "ops.nvcc", "configs.texture160_sr_cmde_bf16_block"):
+        assert f"conditional_score_diffusion_tpu_torch.{name}" in names, name

@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from _torch_port_toy import (
+    Replay,
+    jax_sampler_draws,
     jax_toy_config,
     randomize_params,
     reset_jax_dispatch,
@@ -41,18 +43,6 @@ from conditional_score_diffusion_tpu_torch.sde import build_sde
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-
-
-class Replay:
-    """Noise source that hands out recorded draws in order."""
-
-    def __init__(self, draws):
-        self.draws = [np.array(d) for d in draws]
-
-    def __call__(self, shape):
-        z = self.draws.pop(0)
-        assert z.shape == tuple(shape)
-        return torch.from_numpy(z)
 
 
 def _analytic_scores(sde_x):
@@ -114,24 +104,6 @@ def test_single_sde_sampler_matches_jax():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
 
 
-def _jax_draws(key, p_steps, shape, use_path):
-    """The JAX conditional sampler's draws, in the port's order of use."""
-    normal = lambda k: jax.random.normal(k, shape)
-    rng, prior = jax.random.split(key)
-    draws = [normal(prior)]
-    if use_path:
-        rng, ry = jax.random.split(rng)
-        draws.append(normal(ry))
-        for _ in range(p_steps):
-            rng, rk, rp, rc = jax.random.split(rng, 4)
-            draws += [normal(rk), normal(rp), normal(jax.random.fold_in(rc, 0))]
-    else:
-        for _ in range(p_steps):
-            rng, ryc, rc, ryp, rp = jax.random.split(rng, 5)
-            draws += [normal(ryc), normal(jax.random.fold_in(rc, 0)), normal(ryp), normal(rp)]
-    return draws
-
-
 @pytest.fixture(scope="module")
 def jax_model():
     try:
@@ -167,7 +139,7 @@ def test_sampler_matches_jax(jax_model, use_path):
     model.load_state_dict(flax_to_state_dict(params), strict=True)
     tsde, teps = build_sde(tconfig)
     tfn = get_conditional_sampling_fn(tconfig, tsde, shape, teps, p_steps=p_steps, use_path=use_path)
-    noise = Replay(_jax_draws(key, p_steps, shape, use_path))
+    noise = Replay(jax_sampler_draws(key, p_steps, shape, use_path))
     got, tinfo = tfn(noise, model, torch.from_numpy(y))
     assert not noise.draws  # every draw used
     assert tinfo["steps"] == info["steps"] == 2 * p_steps
