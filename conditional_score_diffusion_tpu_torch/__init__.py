@@ -6,8 +6,11 @@ the name of its counterpart there (`sde/ve.py`, `models/layers.py`,
 package imports `torch` and `numpy` only, never JAX nor anything of the JAX
 package; what it needs from there is copied.
 
-The slice ported so far is the flagship CMDE conditional PC sampler
+The slices ported so far are the flagship CMDE conditional PC sampler
 (`ddpm_paired`, multi-speed VE SDE, conditional reverse diffusion +
-Langevin) with the fused GroupNorm+SiLU+conv3x3 resblock tail as a CUDA
-kernel (`ops/fused_tail.py`, `csrc/gn_silu_conv3x3.cu`).
+Langevin, in float32 or bfloat16 compute) and the NCSN++ DF2K direct 4x
+sampler (`ncsnpp_KxSR` under VS-CMDE), with five TPU kernels as CUDA
+kernels: the fused GroupNorm+SiLU+conv3x3 tail (`ops/fused_tail.py`), the
+whole resblock and its split-skip variant (`ops/fused_block.py`) and the
+factor-2 FIR upsample and downsample (`ops/fir.py`), sources in `csrc/`.
 """

@@ -1,7 +1,10 @@
 """Recipes as plain Python (`Config` namespaces), without ml_collections."""
 
-from .base import Config, base_config
+from .base import Config, base_config, image_model_defaults
 from .celeba_sr import celeba_sr_160_config
+from .srflow import df2k_config
+from .texture160_kxsr_ncsnpp import get_config as texture160_kxsr_ncsnpp_config
+from .texture160_kxsr_ncsnpp_block import get_config as texture160_kxsr_ncsnpp_block_config
 from .texture160_sr_cmde import get_config as texture160_sr_cmde_config
 from .texture160_sr_cmde_bf16_block import get_config as texture160_sr_cmde_bf16_block_config
 
@@ -9,6 +12,10 @@ __all__ = [
     "Config",
     "base_config",
     "celeba_sr_160_config",
+    "df2k_config",
+    "image_model_defaults",
+    "texture160_kxsr_ncsnpp_block_config",
+    "texture160_kxsr_ncsnpp_config",
     "texture160_sr_cmde_bf16_block_config",
     "texture160_sr_cmde_config",
 ]

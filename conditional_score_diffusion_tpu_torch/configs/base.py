@@ -127,3 +127,25 @@ def base_config() -> Config:
         optim=optim,
         seed=42,
     )
+
+
+def image_model_defaults(model: Config) -> Config:
+    """NCSN++/DDPM U-Net defaults shared by every image recipe."""
+    model.nf = 128
+    model.ch_mult = (1, 2, 2, 2)
+    model.num_res_blocks = 2
+    model.attn_resolutions = (16,)
+    model.resamp_with_conv = True
+    model.conditional = True
+    model.fir = True
+    model.fir_kernel = [1, 3, 3, 1]
+    model.skip_rescale = True
+    model.resblock_type = "biggan"
+    model.progressive = "none"
+    model.progressive_input = "none"
+    model.progressive_combine = "sum"
+    model.attention_type = "ddpm"
+    model.init_scale = 0.0
+    model.fourier_scale = 16
+    model.conv_size = 3
+    return model

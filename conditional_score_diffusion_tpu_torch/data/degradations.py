@@ -27,3 +27,15 @@ def sr_degrade(batch: np.ndarray, scale: int) -> np.ndarray:
     H = batch.shape[1]
     lr = bicubic_resize_np(batch, H // scale)
     return nearest_upsample_np(lr, scale)
+
+
+def bicubic_lq_images(images, scale: int):
+    """uint8 HWC images -> their bicubic 1/``scale`` LQ images, uint8, by the
+    expression the repo's dataset script writes its ``*_X{scale}.pklv4``
+    files with (`scripts/make_texture_dataset.py`)."""
+    return [
+        np.clip(
+            bicubic_resize_np(im[None].astype(np.float32) / 255.0, im.shape[0] // scale)[0] * 255.0, 0, 255,
+        ).astype(np.uint8)
+        for im in images
+    ]

@@ -1,9 +1,14 @@
-"""The test split of a `.pklv4` dataset with on-the-fly SR degradation.
+"""The test split of a `.pklv4` dataset, as the JAX package's
+`data/pkl_datasets.py` batches it.
 
-Copied from the JAX package's `data/pkl_datasets.py`: `pkl_paths`,
-`load_pkl_images` and the test-phase super-resolution batches of
-`General_PKLDataset` (no flips at test time; the numpy batch assembly of
-`data/native.py`, which its C++ extension only speeds up).
+Copied from there: `pkl_paths`, `load_pkl_images`, and the test phase of two
+datamodules (no flip, crop or rotation at test time; the numpy batch
+assembly of `data/native.py`, which its C++ extension only speeds up):
+
+* `General_PKLDataset`: GT images with on-the-fly super-resolution
+  degradation (y is the bicubic LR upsampled back by nearest neighbour);
+* `LRHR_PKLDataset`: stored LQ/GT pairs, y the LQ image as it is (or
+  upsampled by nearest neighbour where the recipe sets ``upscale_lr``).
 """
 
 from __future__ import annotations
@@ -14,7 +19,7 @@ from typing import Dict, Iterator, List
 
 import numpy as np
 
-from .degradations import bicubic_resize_np, sr_degrade
+from .degradations import bicubic_resize_np, nearest_upsample_np, sr_degrade
 
 _PKL_FILES = {
     # dataset -> phase -> (LQ_file, GT_file)
@@ -72,12 +77,30 @@ def make_sr_batch(images: List[np.ndarray], image_size: int, scale: int) -> Dict
     return {"x": x, "y": sr_degrade(x, scale)}
 
 
+def make_lrhr_batch(lr: List[np.ndarray], hr: List[np.ndarray], upscale_lr: bool) -> Dict[str, np.ndarray]:
+    """``{'x': HR, 'y': LQ}`` of stored pairs (LQ upsampled by nearest
+    neighbour to the HR size when ``upscale_lr``)."""
+    x, y = assemble_batch(hr), assemble_batch(lr)
+    if upscale_lr:
+        y = nearest_upsample_np(y, x.shape[1] // y.shape[1])
+    return {"x": x, "y": y}
+
+
 def iter_test_batches(config, batch_size=None) -> Iterator[Dict[str, np.ndarray]]:
-    """The test split in order, as `General_PKLDataset.test_iterator` yields
-    it for the super-resolution task (incomplete last batch dropped)."""
+    """The test split in order, as the recipe's datamodule's `test_iterator`
+    yields it (incomplete last batch dropped)."""
+    bs = batch_size or config.eval.batch_size
+    paths = pkl_paths(config, "test")
+    hr = load_pkl_images(paths["GT"])
+    if config.data.datamodule == "LRHR_PKLDataset":
+        lr = load_pkl_images(paths["LQ"])
+        if len(lr) != len(hr):
+            raise ValueError(f"{len(lr)} LQ images for {len(hr)} GT images")
+        upscale_lr = config.data.get("upscale_lr", False)
+        for i in range(0, len(hr) - bs + 1, bs):
+            yield make_lrhr_batch(lr[i : i + bs], hr[i : i + bs], upscale_lr)
+        return
     if config.data.task != "super-resolution":
         raise NotImplementedError(f"task {config.data.task!r} is not ported")
-    bs = batch_size or config.eval.batch_size
-    images = load_pkl_images(pkl_paths(config, "test")["GT"])
-    for i in range(0, len(images) - bs + 1, bs):
-        yield make_sr_batch(images[i : i + bs], config.data.image_size, config.data.get("scale", 4))
+    for i in range(0, len(hr) - bs + 1, bs):
+        yield make_sr_batch(hr[i : i + bs], config.data.image_size, config.data.get("scale", 4))

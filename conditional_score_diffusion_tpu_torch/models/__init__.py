@@ -13,7 +13,8 @@ get_model = registry.models.get
 
 def create_model(config, device="cuda") -> nn.Module:
     """The model named by ``config.model.name``, built on ``device`` with
-    the DDPM default init, in eval mode."""
+    the DDPM default init, in eval mode; its kernel call sites follow the
+    recipe's ``model.fused_tail`` / ``model.fused_block``."""
     cls = get_model(config.model.name)
     with torch.device(device):
         model = cls.from_config(config)
@@ -32,8 +33,10 @@ def init_model_random(config, seed: int = 0, scale: float = 0.02, device="cuda")
     """
     model = create_model(config, device)
     gen = torch.Generator(device=device).manual_seed(seed)
+    # the NCSN++ Fourier projection's frozen W is a buffer here, a parameter in JAX
+    fourier = [(n, b) for n, b in model.named_buffers() if n.rsplit(".", 1)[-1] == "W"]
     with torch.no_grad():
-        for name, p in model.named_parameters():
+        for name, p in list(model.named_parameters()) + fourier:
             leaf = name.rsplit(".", 1)[-1]
             if leaf == "weight" and p.ndim == 1:  # GroupNorm scale
                 p.fill_(1.0)
@@ -44,7 +47,8 @@ def init_model_random(config, seed: int = 0, scale: float = 0.02, device="cuda")
     return model
 
 
-# Side-effect import fills the registry.
+# Side-effect imports fill the registry.
 from . import ddpm  # noqa: E402,F401
+from . import ncsnpp  # noqa: E402,F401
 
 __all__ = ["register_model", "get_model", "create_model", "init_model_random"]

@@ -1,18 +1,21 @@
 """Weight bridge between the JAX package's Flax ``params`` tree and this
 port's ``state_dict``.
 
-Module names are the same on both sides (`models/ddpm.py`), so the bridge
-only renames leaves and transposes them:
+Module names are the same on both sides (`models/ddpm.py`,
+`models/ncsnpp.py`), so the bridge only renames leaves and transposes them:
 
-  * conv ``kernel`` HWIO          <-> ``weight`` OIHW
+  * conv ``kernel`` HWIO          <-> ``weight`` OIHW (3x3 and 1x1 convs)
   * dense ``kernel`` (in, out)    <-> ``weight`` (out, in)   (Dense, NIN,
     SplitNIN: ``.../dense/kernel``)
   * GroupNorm ``scale`` (C,)      <-> ``weight`` (C,)
   * ``bias``                      <-> ``bias``
+  * NCSN++ Fourier ``W`` (C,)     <-> the buffer ``W``
+  * FIR resampler ``conv_w`` HWIO <-> ``conv_w`` OIHW, ``conv_b`` <-> ``conv_b``
 
-The split banks (SplitGroupNorm, SplitConv3x3, SplitNIN) hold the same
-parameters as their joint modules, so they need nothing of their own.  The
-Flax tree is taken as nested dicts of numpy arrays (``jax.device_get``).
+The split banks (SplitGroupNorm, SplitConv3x3, SplitConv1x1, SplitNIN) hold
+the same parameters as their joint modules, so they need nothing of their
+own.  The Flax tree is taken as nested dicts of numpy arrays
+(``jax.device_get``).
 """
 
 from __future__ import annotations
@@ -24,8 +27,10 @@ import torch
 
 
 def _leaf_to_torch(name: str, value: np.ndarray):
-    if name == "kernel" and value.ndim == 4:
-        return "weight", np.transpose(value, (3, 2, 0, 1))
+    if name in ("kernel", "conv_w") and value.ndim == 4:
+        return "weight" if name == "kernel" else name, np.transpose(value, (3, 2, 0, 1))
+    if name in ("W", "conv_b") and value.ndim == 1:
+        return name, value
     if name == "kernel" and value.ndim == 2:
         return "weight", value.T
     if name == "scale":
@@ -45,7 +50,7 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
                 walk(value, prefix + (key,))
             else:
                 leaf, arr = _leaf_to_torch(key, np.asarray(value))
-                out[".".join(prefix + (leaf,))] = torch.from_numpy(np.ascontiguousarray(arr))
+                out[".".join(prefix + (leaf,))] = torch.from_numpy(np.array(arr))  # a writable copy
 
     walk(params, ())
     return out
@@ -57,13 +62,13 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     for key, tensor in state_dict.items():
         *path, leaf = key.split(".")
         arr = tensor.detach().cpu().numpy()
-        if leaf == "weight" and arr.ndim == 4:
-            leaf, arr = "kernel", np.transpose(arr, (2, 3, 1, 0))
+        if leaf in ("weight", "conv_w") and arr.ndim == 4:
+            leaf, arr = "kernel" if leaf == "weight" else leaf, np.transpose(arr, (2, 3, 1, 0))
         elif leaf == "weight" and arr.ndim == 2:
             leaf, arr = "kernel", arr.T
         elif leaf == "weight" and arr.ndim == 1:
             leaf = "scale"
-        elif leaf != "bias":
+        elif leaf not in ("bias", "W", "conv_b"):
             raise KeyError(f"no Flax counterpart for {key!r}")
         node = params
         for p in path:

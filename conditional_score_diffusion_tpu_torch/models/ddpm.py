@@ -26,6 +26,17 @@ from .layers import (
     legacy_group_norm,
 )
 
+def squeeze2x(z: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Space-to-depth by 2 of NHWC ``z`` (its inverse with ``reverse``);
+    output channel ``4*c + (2*dy + dx)``, as in the JAX package."""
+    B, H, W, C = z.shape
+    if not reverse:
+        z = z.reshape(B, H // 2, 2, W // 2, 2, C).permute(0, 1, 3, 5, 2, 4)
+        return z.reshape(B, H // 2, W // 2, 4 * C)
+    z = z.reshape(B, H, W, C // 4, 2, 2).permute(0, 1, 4, 2, 5, 3)
+    return z.reshape(B, H * 2, W * 2, C // 4)
+
+
 _ACTS = {
     "elu": F.elu,
     "relu": F.relu,

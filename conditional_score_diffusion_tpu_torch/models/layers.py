@@ -89,6 +89,11 @@ def legacy_num_groups(ch: int) -> int:
     return 32 if ch % 32 == 0 else math.gcd(ch, 32)
 
 
+def default_num_groups(ch: int) -> int:
+    """NCSN++ GroupNorm groups: min(C // 4, 32)."""
+    return min(ch // 4, 32)
+
+
 class Dense(nn.Module):
     """`nn.Dense` over the last axis with DDPM init."""
 
@@ -124,6 +129,27 @@ class NIN(nn.Module):
 
     def forward(self, x):
         return self.dense(x)
+
+    def channel_mix(self):
+        """The (out, in) matrix and the bias this layer applies per pixel."""
+        return self.dense.weight, self.dense.bias
+
+
+class Conv1x1(nn.Module):
+    """1x1 conv with DDPM init, NHWC in and out, OIHW weight: a per-pixel
+    channel mix (``F.linear`` over the last axis)."""
+
+    def __init__(self, in_ch: int, out_ch: int, init_scale: float = 1.0):
+        super().__init__()
+        self.weight = nn.Parameter(default_init_(torch.empty(out_ch, in_ch, 1, 1), init_scale))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+
+    def forward(self, x):
+        return F.linear(x, self.weight.flatten(1).to(x.dtype), self.bias.to(x.dtype))
+
+    def channel_mix(self):
+        """The (out, in) matrix and the bias this layer applies per pixel."""
+        return self.weight.flatten(1), self.bias
 
 
 class GroupNorm(nn.Module):
@@ -189,6 +215,15 @@ class SplitConv3x3(Conv3x3):
         return out + self.bias.to(a.dtype)
 
 
+class SplitConv1x1(Conv1x1):
+    """1x1 conv over cat(a, b) as two channel mixes and an add."""
+
+    def forward(self, a, b):
+        ca = a.shape[-1]
+        w = self.weight.flatten(1).to(a.dtype)
+        return F.linear(a, w[:, :ca]) + F.linear(b, w[:, ca:], self.bias.to(a.dtype))
+
+
 class SplitNIN(NIN):
     """`NIN` over cat(a, b) as two matmuls and an add."""
 
@@ -196,6 +231,16 @@ class SplitNIN(NIN):
         ca = a.shape[-1]
         w = self.dense.weight.to(a.dtype)
         return F.linear(a, w[:, :ca]) + F.linear(b, w[:, ca:], self.dense.bias.to(a.dtype))
+
+
+def spatial_attention(q, k, v):
+    """Self-attention over pixels of NHWC q, k, v (contracted over
+    channels), in float32 whatever their dtype; out in q's dtype."""
+    B, H, W, C = q.shape
+    dtype = q.dtype
+    q, k, v = (t.reshape(B, H * W, C).float() for t in (q, k, v))
+    w = torch.softmax(torch.bmm(q, k.transpose(1, 2)) * (int(C) ** (-0.5)), dim=-1)
+    return torch.bmm(w, v).to(dtype).reshape(B, H, W, C)
 
 
 class AttnBlock(nn.Module):
@@ -210,14 +255,8 @@ class AttnBlock(nn.Module):
         self.out = NIN(channels, channels, init_scale=0.0)
 
     def forward(self, x):
-        B, H, W, C = x.shape
         h = self.norm(x)
-        q = self.q(h).reshape(B, H * W, C).float()
-        k = self.k(h).reshape(B, H * W, C).float()
-        v = self.v(h).reshape(B, H * W, C).float()
-        w = torch.softmax(torch.bmm(q, k.transpose(1, 2)) * (int(C) ** (-0.5)), dim=-1)
-        h = torch.bmm(w, v).to(x.dtype).reshape(B, H, W, C)
-        return x + self.out(h)
+        return x + self.out(spatial_attention(self.q(h), self.k(h), self.v(h)))
 
 
 class Upsample(nn.Module):
@@ -245,55 +284,26 @@ class Downsample(nn.Module):
         return F.avg_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
 
 
-class ResnetBlockDDPM(nn.Module):
-    """DDPM ResNet block (2D).
+# 1/sqrt(2) as a Python float, so a bfloat16 activation stays bfloat16.
+INV_SQRT2 = float(1.0 / math.sqrt(2.0))
 
-    ``split_skip``: when a ``skip`` tensor is passed, compute the block on
-    the virtual concatenation cat(x, skip) (SplitGroupNorm, SplitConv3x3,
-    SplitNIN), with the same parameters as the joint block.
 
-    ``fused_tail``: in eval mode, run the norm1 -> act -> conv1 tail as one
-    `ops.fused_tail.gn_silu_conv3x3` call where the JAX gate
-    :func:`fused_tail_candidate_policy` holds and the activation is SiLU.
+class FusedResblock(nn.Module):
+    """What the DDPM and NCSN++ resblocks share: the norm1 -> act -> dropout
+    -> conv1 tail, which `ops.fused_tail.gn_silu_conv3x3` computes in eval
+    mode where the JAX gate :func:`fused_tail_candidate_policy` holds and the
+    activation is SiLU (``fused_tail``), and the whole block, which
+    `ops.fused_block.resblock_fused` (no skip) or `resblock_fused_split` (on
+    cat(x, skip)) computes in eval mode where
+    :func:`fused_block_candidate_policy` holds and the activation is SiLU
+    (``fused_block``); there it wins over the tail.  The parameters are the
+    unfused block's.
 
-    ``fused_block``: in eval mode, run the whole block as one
-    `ops.fused_block.resblock_fused` call (no skip) or
-    `resblock_fused_split` call (on cat(x, skip)) where
-    :func:`fused_block_candidate_policy` holds, the activation is SiLU and
-    the shortcut is the identity or the NIN (JAX `ResnetBlockDDPM`); there
-    it wins over the tail.  The parameters are the unfused block's.
+    A subclass sets ``act``, ``out_ch``, ``fused_tail``, ``fused_block``,
+    ``skip_rescale`` and the modules ``norm0``, ``conv0``, ``temb_proj``,
+    ``norm1``, ``dropout``, ``conv1`` and ``shortcut`` (None, or a layer with
+    ``channel_mix()``).
     """
-
-    def __init__(
-        self,
-        act: Callable,
-        in_ch: int,
-        out_ch: Optional[int] = None,
-        temb_dim: Optional[int] = None,
-        conv_shortcut: bool = False,
-        dropout: float = 0.1,
-        split_skip: bool = False,
-        fused_tail: bool = False,
-        fused_block: bool = False,
-    ):
-        super().__init__()
-        out_ch = out_ch if out_ch is not None else in_ch
-        self.act, self.in_ch, self.out_ch, self.conv_shortcut = act, in_ch, out_ch, conv_shortcut
-        self.split_skip, self.fused_tail, self.fused_block = split_skip, fused_tail, fused_block
-        G_in = legacy_num_groups(in_ch)
-        self.norm0 = SplitGroupNorm(in_ch, G_in) if split_skip else GroupNorm(in_ch, G_in)
-        self.conv0 = (SplitConv3x3 if split_skip else Conv3x3)(in_ch, out_ch)
-        self.temb_proj = Dense(temb_dim, out_ch) if temb_dim is not None else None
-        self.norm1 = legacy_group_norm(out_ch)
-        self.dropout = nn.Dropout(dropout)
-        self.conv1 = Conv3x3(out_ch, out_ch, init_scale=0.0)
-        if in_ch != out_ch:
-            if conv_shortcut:
-                self.shortcut = (SplitConv3x3 if split_skip else Conv3x3)(in_ch, out_ch)
-            else:
-                self.shortcut = (SplitNIN if split_skip else NIN)(in_ch, out_ch)
-        else:
-            self.shortcut = None
 
     def gn_act_conv_tail(self, h):
         """The norm1 -> act -> dropout -> conv1 tail."""
@@ -318,12 +328,12 @@ class ResnetBlockDDPM(nn.Module):
     def fused_block_args(self, dtype, temb) -> dict:
         """The block's parameters as the whole-block kernels take them:
         weights in the compute ``dtype``, vectors and the temb projection
-        (computed here, as in JAX) in float32, the NIN as a (Cin, Cout)
-        matrix."""
+        (computed here, as in JAX) in float32, the shortcut (NIN or 1x1
+        conv) as a (Cin, Cout) matrix."""
         ws = bs = None
         if self.shortcut is not None:
-            ws = self.shortcut.dense.weight.t().to(dtype).contiguous()
-            bs = self.shortcut.dense.bias.float()
+            w, b = self.shortcut.channel_mix()
+            ws, bs = w.t().to(dtype).contiguous(), b.float()
         return dict(
             gamma0=self.norm0.weight.float(), beta0=self.norm0.bias.float(),
             num_groups0=self.norm0.num_groups,
@@ -332,20 +342,78 @@ class ResnetBlockDDPM(nn.Module):
             gamma1=self.norm1.weight.float(), beta1=self.norm1.bias.float(),
             num_groups1=self.norm1.num_groups,
             w1=self.conv1.weight.to(dtype), b1=self.conv1.bias.float(),
-            shortcut_w=ws, shortcut_b=bs,
+            shortcut_w=ws, shortcut_b=bs, skip_rescale=self.skip_rescale,
         )
+
+    def fused_whole_block(self, x, temb, skip) -> Optional[torch.Tensor]:
+        """The block as one kernel call where its gate holds, else None."""
+        if fused_block_applicable(x, self.act, self.training, skip, self.out_ch, self.fused_block):
+            return resblock_fused(x.contiguous(), **self.fused_block_args(x.dtype, temb))
+        if fused_split_block_applicable(x, skip, self.act, self.training, self.out_ch, self.fused_block):
+            return resblock_fused_split(x.contiguous(), skip.contiguous(), **self.fused_block_args(x.dtype, temb))
+        return None
+
+    def residual(self, x, h):
+        """``x + h``, times 1/sqrt(2) with ``skip_rescale``."""
+        return (x + h) * INV_SQRT2 if self.skip_rescale else x + h
+
+
+class ResnetBlockDDPM(FusedResblock):
+    """DDPM ResNet block (2D); with ``num_groups=default_num_groups``, the
+    conv1 ``init_scale`` and ``skip_rescale`` it is the NCSN++ DDPM block.
+
+    ``split_skip``: when a ``skip`` tensor is passed, compute the block on
+    the virtual concatenation cat(x, skip) (SplitGroupNorm, SplitConv3x3,
+    SplitNIN), with the same parameters as the joint block.
+
+    ``fused_tail``, ``fused_block``: see :class:`FusedResblock`; the whole
+    block fuses where the shortcut is the identity or the NIN (JAX
+    `ResnetBlockDDPM`).
+    """
+
+    def __init__(
+        self,
+        act: Callable,
+        in_ch: int,
+        out_ch: Optional[int] = None,
+        temb_dim: Optional[int] = None,
+        conv_shortcut: bool = False,
+        dropout: float = 0.1,
+        split_skip: bool = False,
+        fused_tail: bool = False,
+        fused_block: bool = False,
+        num_groups: Callable[[int], int] = legacy_num_groups,
+        init_scale: float = 0.0,
+        skip_rescale: bool = False,
+    ):
+        super().__init__()
+        out_ch = out_ch if out_ch is not None else in_ch
+        self.act, self.in_ch, self.out_ch, self.conv_shortcut = act, in_ch, out_ch, conv_shortcut
+        self.split_skip, self.fused_tail, self.fused_block = split_skip, fused_tail, fused_block
+        self.skip_rescale = skip_rescale
+        G_in = num_groups(in_ch)
+        self.norm0 = SplitGroupNorm(in_ch, G_in) if split_skip else GroupNorm(in_ch, G_in)
+        self.conv0 = (SplitConv3x3 if split_skip else Conv3x3)(in_ch, out_ch)
+        self.temb_proj = Dense(temb_dim, out_ch) if temb_dim is not None else None
+        self.norm1 = GroupNorm(out_ch, num_groups(out_ch))
+        self.dropout = nn.Dropout(dropout)
+        self.conv1 = Conv3x3(out_ch, out_ch, init_scale=init_scale)
+        if in_ch != out_ch:
+            if conv_shortcut:
+                self.shortcut = (SplitConv3x3 if split_skip else Conv3x3)(in_ch, out_ch)
+            else:
+                self.shortcut = (SplitNIN if split_skip else NIN)(in_ch, out_ch)
+        else:
+            self.shortcut = None
 
     def forward(self, x, temb=None, skip=None):
         if skip is not None and not self.split_skip:
             x = torch.cat([x, skip], dim=-1)
             skip = None
         if self.in_ch == self.out_ch or not self.conv_shortcut:
-            if fused_block_applicable(x, self.act, self.training, skip, self.out_ch, self.fused_block):
-                return resblock_fused(x.contiguous(), **self.fused_block_args(x.dtype, temb))
-            if fused_split_block_applicable(x, skip, self.act, self.training, self.out_ch, self.fused_block):
-                return resblock_fused_split(
-                    x.contiguous(), skip.contiguous(), **self.fused_block_args(x.dtype, temb)
-                )
+            fused = self.fused_whole_block(x, temb, skip)
+            if fused is not None:
+                return fused
         if skip is None:
             h = self.conv0(self.act(self.norm0(x)))
         else:
@@ -358,4 +426,4 @@ class ResnetBlockDDPM(nn.Module):
             x = self.shortcut(x, skip) if skip is not None else self.shortcut(x)
         elif skip is not None:  # identity residual needs the real concat
             x = torch.cat([x, skip], dim=-1)
-        return x + h
+        return self.residual(x, h)

@@ -103,21 +103,22 @@ class Replay:
         return torch.from_numpy(z)
 
 
-def jax_sampler_draws(key, p_steps, shape, use_path):
+def jax_sampler_draws(key, p_steps, shape, use_path, y_shape=None):
     """The JAX conditional sampler's draws (`sampling/pc.py:165` and the
     branches after it, `sampling/correctors.py:37-39`), in the port's order
-    of use."""
+    of use; ``y_shape`` is y's where it differs from x's ``shape``."""
     normal = lambda k: jax.random.normal(k, shape)  # noqa: E731
+    normal_y = lambda k: jax.random.normal(k, y_shape or shape)  # noqa: E731
     rng, prior = jax.random.split(key)
     draws = [normal(prior)]
     if use_path:
         rng, ry = jax.random.split(rng)
-        draws.append(normal(ry))
+        draws.append(normal_y(ry))
         for _ in range(p_steps):
             rng, rk, rp, rc = jax.random.split(rng, 4)
-            draws += [normal(rk), normal(rp), normal(jax.random.fold_in(rc, 0))]
+            draws += [normal_y(rk), normal(rp), normal(jax.random.fold_in(rc, 0))]
     else:
         for _ in range(p_steps):
             rng, ryc, rc, ryp, rp = jax.random.split(rng, 5)
-            draws += [normal(ryc), normal(jax.random.fold_in(rc, 0)), normal(ryp), normal(rp)]
+            draws += [normal_y(ryc), normal(jax.random.fold_in(rc, 0)), normal_y(ryp), normal(rp)]
     return draws
