@@ -8,11 +8,11 @@ Phases, each printing its own line with its seconds:
 1. device: needs a CUDA device (exits non-zero without one); prints the card's
    name and power limit as nvidia-smi gives them, and the TF32 switches
    (both off: the port runs float32 as float32).
-2. build: builds the three kernel sources (csrc/gn_silu_conv3x3.cu,
-   csrc/resblock_fused.cu, csrc/fir_resample.cu) with nvcc, in parallel,
-   each with its seconds and its ptxas lines.
+2. build: builds the four kernel sources (csrc/gn_silu_conv3x3.cu,
+   csrc/resblock_fused.cu, csrc/fir_resample.cu, csrc/conv3x3.cu) with nvcc,
+   in parallel, each with its seconds and its ptxas lines.
 3. kernel: each kernel against its plain PyTorch version at the shapes its
-   path gives it (B=8), float32 and bfloat16 (2e-2 of the largest magnitude;
+   path gives it, float32 and bfloat16 (2e-2 of the largest magnitude;
    float32 1e-4, the FIR kernels 1e-5): the fused tail at the flagship's
    20x20x192, 10x10x288, 5x5x288, with and without temb; the whole-resblock
    kernels at the flagship's six sites (block 10x10 192->288 with the NIN
@@ -20,13 +20,17 @@ Phases, each printing its own line with its seconds:
    288+288, 10x10 288+192 -> 288, where a 15-channel group straddles the
    concat), with and without temb and once with skip_rescale; then each
    one's time, its plain version's, a library yardstick's and its bound, by
-   CUDA events.  The same three kernels at the NCSN++ block variant's sites
-   (tails at 20x20x128 to 5x5x256; blocks with the 1x1-conv shortcut and
-   skip_rescale, splits 256+256 and 256+128), checked only.  The FIR
+   CUDA events (B=8).  The same three kernels at the NCSN++ block variant's
+   sites (tails at 20x20x128 to 5x5x256; blocks with the 1x1-conv shortcut
+   and skip_rescale, splits 256+256 and 256+128), checked only.  The FIR
    upsample and downsample at the 20 shapes of one NCSN++ forward (5x5 to
    160x160, 6 to 256 channels; a non-symmetric kernel at two of them),
    timed beside their plain versions, the depthwise cuDNN call and the
-   bound.
+   bound.  The 3x3 conv (kernel 4) at the 27 distinct forward and dx shapes
+   of the flagship train step (B=16, 160x160x6 to 5x5x288; counted on the
+   meta device), timed beside its plain version, F.conv2d and the bound;
+   its autograd input gradient against F.conv2d's at two shapes; kernel 5's
+   (H, W, B, C) entry at two shapes.
 4. agreement: the same weights with the kernels on and off: the float32
    tail path and the flagship block path (fused_block and fused_tail) in
    float32 and in bfloat16 compute; the NCSN++ path with the FIR kernels
@@ -34,7 +38,8 @@ Phases, each printing its own line with its seconds:
    fused_block) against the path without them, both float32.  Each: the
    score on the sampler's own input at t = 0.5, a 3-step sample and the raw
    network output on the clean batch; float32 at 1e-4, bfloat16 as
-   `agreement` says (2e-2).
+   `agreement` says (2e-2).  After the samplers, the train step with kernel
+   4 on and off (`train_agreement`).
 5. main (the flagship block path): texture160 test batch 0 (8 images, y =
    8x SR degradation), the full-width ddpm_paired with seeded N(0, 0.02)
    weights, bfloat16 compute through `get_score_fn(compute_dtype=...)` ->
@@ -45,7 +50,7 @@ Phases, each printing its own line with its seconds:
 6. main (the float32 tail path): the same batch and weights, float32,
    fused_tail only, through `get_conditional_sampling_fn`, 200 steps; the
    tail's counter must read 17 x 2 x 200.
-7. main (the NCSN++ path, new): the DF2K direct 4x recipe on texture160
+7. main (the NCSN++ path): the DF2K direct 4x recipe on texture160
    (`texture160_kxsr_ncsnpp`): the first 8 test pairs (the recipe's eval
    batch of 32 cut to 8), x 160x160 and y the committed 40x40 LQ images;
    the full-width ncsnpp_KxSR (nf=64, ch_mult (1,1,2,2,4,4), 32.1 M
@@ -53,7 +58,17 @@ Phases, each printing its own line with its seconds:
    sigma_y as the VS-CMDE schedule leaves it (sigma_y,max 138.6); float32
    through `get_conditional_sampling_fn`, 1000 steps; the FIR counters must
    read 15 x 2 x 1000 each.
-8. result: a JSON line of the kernels, the nvidia-smi line, and last
+8. main (the trainer path, new): `Trainer(texture160_sr_cmde_conv3x3)
+   .fit(max_steps=20)`: the texture160 train split, batch 16, float32,
+   dropout 0.1, the DDPM init, every 3x3 stride-1 conv and its input
+   gradient on kernel 4; train_loss finite, one eval_loss on the EMA (4
+   batches of the test split: the val split is not sent to the card),
+   a checkpoint restored exactly into a new trainer; kernel 4's counter
+   exactly (89 + 88) x 20 + 72 x 4, the tail's 17 x 4, every other 0.
+   Then the same for 5 steps with the policy off (every counter 0).  Each
+   prints ms per step and images/s over the sustained window, the peak
+   memory, and one step split by CUDA events.
+9. result: a JSON line of the kernels, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -61,12 +76,14 @@ Any failed check raises, so the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -81,15 +98,16 @@ from conditional_score_diffusion_tpu_torch.configs import (  # noqa: E402
     texture160_kxsr_ncsnpp_config,
     texture160_sr_cmde_bf16_block_config,
     texture160_sr_cmde_config,
+    texture160_sr_cmde_conv3x3_config,
 )
-from conditional_score_diffusion_tpu_torch.data.pkl_datasets import iter_test_batches  # noqa: E402
+from conditional_score_diffusion_tpu_torch.data.pkl_datasets import PKLDataModule, iter_test_batches  # noqa: E402
 from conditional_score_diffusion_tpu_torch.models import create_model, init_model_random  # noqa: E402
 from conditional_score_diffusion_tpu_torch.models.wrappers import (  # noqa: E402
     get_conditional_score_fn,
     get_model_fn,
     get_score_fn,
 )
-from conditional_score_diffusion_tpu_torch.ops import fir, fused_block, fused_tail  # noqa: E402
+from conditional_score_diffusion_tpu_torch.ops import conv3x3, fir, fused_block, fused_tail  # noqa: E402
 from conditional_score_diffusion_tpu_torch.ops.fused_tail import conv3x3_nhwc  # noqa: E402
 from conditional_score_diffusion_tpu_torch.ops.upfirdn import setup_kernel  # noqa: E402
 from conditional_score_diffusion_tpu_torch.profile_sampler import plain_versions, sampler_sde  # noqa: E402
@@ -98,6 +116,10 @@ from conditional_score_diffusion_tpu_torch.sampling import (  # noqa: E402
     get_pc_conditional_sampler,
 )
 from conditional_score_diffusion_tpu_torch.sde import batch_mul  # noqa: E402
+from conditional_score_diffusion_tpu_torch.training.checkpoint import CheckpointManager  # noqa: E402
+from conditional_score_diffusion_tpu_torch.training.state import create_train_state  # noqa: E402
+from conditional_score_diffusion_tpu_torch.training.steps import make_train_step  # noqa: E402
+from conditional_score_diffusion_tpu_torch.training.trainer import Trainer, read_scalars, to_device  # noqa: E402
 
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # float32 outside the tensor cores
@@ -158,12 +180,41 @@ REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Kernels on against off, bfloat16 compute (see `agreement`).
 BF16_AGREE_TOL = 2e-2
 
+# The flagship train step at full width, B=16, float32 (the trainer path):
+# kernel 4 carries every 3x3 stride-1 conv, (forward, dx) launches per step
+# (tests/test_torch_conv3x3.py counts them again on the meta device): 89
+# convs (conv_in, 2 per down and mid block, 3 per split up block, 5 upsample
+# convs, conv_out), and their input gradients but conv_in's.  An eval
+# forward (the EMA loss, B=8) leaves the 17 gated tails' conv1 to the fused
+# tail.
+TRAIN_BATCH = 16
+CONV_PER_TRAIN_STEP = (89, 88)
+CONV_PER_EVAL_FORWARD = 72
+TRAIN_STEPS = 20  # Trainer.fit on the new path
+TRAIN_OFF_STEPS = 5  # the same with the policy off
+TRAIN_AGREE_STEPS = 3
+EVAL_BATCHES = 4  # the recipe's eval.max_val_batches
+# Kernel 4 on against off in the train step: loss 1e-5, each gradient by
+# norm 1e-4, each tensor's 3-step update of params and EMA by norm 2e-3, as
+# tests/test_torch_train.py holds the port against JAX.  The CPU test also
+# holds each element at 1e-6 of its tensor's scale outside the small
+# gradients; at full width Adam's per-element amplification of rounding
+# (updates ~lr*sign(g) at first, then the ratio of an element's gradients)
+# broke that even with 40% of the elements excluded (1.2e-5, NVIDIA H100
+# 80GB HBM3, 700.00 W), so here the element numbers are printed, not gated.
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_UPDATE_TOL, TRAIN_PARAM_TOL = 1e-5, 1e-4, 2e-3, 1e-6
+SMALL_GRAD, NOISE_LEVEL = 1e-2, 1e-6
+HMAJOR_SHAPES = [(20, 192, 192), (5, 288, 288)]  # (H, Cin, Cout) of the (H, W, B, C) entry
+ROTATION_SHAPES = [(40, 96, 192), (10, 288, 192)]  # the autograd dx against F.conv2d's
+
 WRAPPERS = {
     "gn_silu_conv3x3": fused_tail.gn_silu_conv3x3,
     "resblock_fused": fused_block.resblock_fused,
     "resblock_fused_split": fused_block.resblock_fused_split,
     "fir_upsample2": fir.fir_upsample2,
     "fir_downsample2": fir.fir_downsample2,
+    "conv3x3": conv3x3.conv3x3,
+    "conv3x3_hmajor": conv3x3.conv3x3_hmajor,
 }
 
 
@@ -436,6 +487,291 @@ def check_fir():
     return rows
 
 
+# ---- the 3x3 conv (kernels 4 and 5) ------------------------------------------
+
+
+def conv_call_shapes(config, batch=TRAIN_BATCH):
+    """Counter of the kernel-4 calls of one train step on the meta device, by
+    (phase, H, Cin, Cout), phase 'forward' or 'dx'."""
+    calls = collections.Counter()
+    phase = ["forward"]
+    real = conv3x3._conv3x3_nhwc
+
+    def record(x, w, bias):
+        calls[(phase[0], x.shape[1], x.shape[3], w.shape[0])] += 1
+        return torch.empty(*x.shape[:-1], w.shape[0], device=x.device, dtype=x.dtype)
+
+    conv3x3._conv3x3_nhwc = record
+    try:
+        model = create_model(config, "meta").train()
+        s = config.data.image_size
+        x = torch.empty(batch, s, s, 3, device="meta")
+        out = model({"x": x, "y": x}, torch.empty(batch, device="meta"))
+        phase[0] = "dx"
+        (out["x"].sum() + out["y"].sum()).backward()
+    finally:
+        conv3x3._conv3x3_nhwc = real
+    return calls
+
+
+def conv_inputs(h, cin, cout, dtype, seed, batch=TRAIN_BATCH):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(batch, h, h, cin, generator=g, device="cuda") * 1.5 + 0.3).to(dtype)
+    w = (torch.randn(cout, cin, 3, 3, generator=g, device="cuda") / math.sqrt(9 * cin)).to(dtype)
+    bias = 0.1 * torch.randn(cout, generator=g, device="cuda")
+    return x, w, bias
+
+
+def conv_work(h, cin, cout, dtype, batch=TRAIN_BATCH):
+    """Operations and bytes of one call: x, w (and the float32 bias) read
+    once, out written once."""
+    px = batch * h * h
+    return 2 * 9 * px * cin * cout, itemsize(dtype) * (px * cin + 9 * cin * cout + px * cout) + 4 * cout
+
+
+def conv_library(x, w, bias):
+    """The one PyTorch call: `F.conv2d` on the NCHW view, in x's dtype."""
+    return F.conv2d(x.permute(0, 3, 1, 2), w, None if bias is None else bias.to(x.dtype), padding=1)
+
+
+def time_conv_row(row, h, cin, cout, dtype, kernel, plain, library, batch=TRAIN_BATCH):
+    """Add the bound and the kernel's, plain version's and library call's
+    times (CUDA events; 10 calls at 80x80 and up, 50 below) to ``row``."""
+    flops, nbytes = conv_work(h, cin, cout, dtype, batch)
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    iters = 10 if h >= 80 else 50
+    row.update(
+        gflop=flops / 1e9, bound_ms=bound_ms, bound_by=bound_by,
+        ms=time_ms(kernel, iters, warmup=2), plain_ms=time_ms(plain, iters, warmup=2),
+        library_ms=time_ms(library, iters, warmup=2),
+    )
+    print(
+        f"    time: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, F.conv2d {row['library_ms']:.4f} ms,"
+        f" bound {bound_ms:.4f} ms ({bound_by}), {flops / row['ms'] / 1e9:.2f} TFLOP/s",
+        flush=True,
+    )
+    return row
+
+
+def check_conv(shapes):
+    """Kernel 4 against its plain version at every distinct forward and dx
+    shape of the train step (B=16), float32 and bfloat16 (the dx conv is the
+    forward entry on the output gradient with rotated weights, no bias),
+    timed; its autograd dx against F.conv2d's at two shapes; kernel 5's
+    (H, W, B, C) entry at two shapes.  Returns (conv rows, hmajor rows)."""
+    rows = []
+    for i, ((ph, h, cin, cout), calls) in enumerate(sorted(shapes.items())):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, bias = conv_inputs(h, cin, cout, dtype, seed=1000 + i)
+            b = bias if ph == "forward" else None
+            label = f"conv3x3 {ph} {TRAIN_BATCH}x{h}x{h}x{cin}->{cout} {dname(dtype)}"
+            err = check_close(label, conv3x3.conv3x3(x, w, b), conv3x3.conv3x3_plain(x, w, b), dtype)
+            row = dict(phase=ph, shape=f"{TRAIN_BATCH}x{h}x{h}x{cin}->{cout}", dtype=dname(dtype),
+                       calls_per_step=calls, max_abs_err=err)
+            rows.append(time_conv_row(
+                row, h, cin, cout, dtype, lambda: conv3x3.conv3x3(x, w, b),
+                lambda: conv3x3.conv3x3_plain(x, w, b), lambda: conv_library(x, w, b),
+            ))
+    for h, cin, cout in ROTATION_SHAPES:
+        x, w, bias = conv_inputs(h, cin, cout, torch.float32, seed=h * cin)
+        g = torch.randn(TRAIN_BATCH, h, h, cout, device="cuda")
+        xk = x.clone().requires_grad_()
+        conv3x3.conv3x3(xk, w, bias).backward(g)
+        xr = x.clone().requires_grad_()
+        conv_library(xr, w, bias).permute(0, 2, 3, 1).backward(g)
+        check_close(f"conv3x3 autograd dx {TRAIN_BATCH}x{h}x{h}x{cin}->{cout} float32 (against F.conv2d's)",
+                    xk.grad, xr.grad, torch.float32)
+    hmajor_rows = []
+    for h, cin, cout in HMAJOR_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, bias = conv_inputs(h, cin, cout, dtype, seed=7 * h + cin)
+            xt = x.permute(1, 2, 0, 3).contiguous()
+            label = f"conv3x3_hmajor {h}x{h}x{TRAIN_BATCH}x{cin}->{cout} {dname(dtype)}"
+            err = check_close(label, conv3x3.conv3x3_hmajor(xt, w, bias), conv3x3.conv3x3_hmajor_plain(xt, w, bias), dtype)
+            row = dict(shape=f"{h}x{h}x{TRAIN_BATCH}x{cin}->{cout}", dtype=dname(dtype), max_abs_err=err)
+            hmajor_rows.append(time_conv_row(
+                row, h, cin, cout, dtype, lambda: conv3x3.conv3x3_hmajor(xt, w, bias),
+                lambda: conv3x3.conv3x3_hmajor_plain(xt, w, bias),
+                lambda: conv_library(xt.permute(2, 0, 1, 3), w, bias),
+            ))
+    return rows, hmajor_rows
+
+
+def conv_sums(rows, dtype, key="calls_per_step"):
+    """Sums over one train step's calls at ``dtype``: forward, dx and both."""
+    out = {}
+    for part in ("forward", "dx", None):
+        rs = [r for r in rows if r["dtype"] == dname(dtype) and (part is None or r["phase"] == part)]
+        out[part or "step"] = {k: sum(r[k] * r[key] for r in rs) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    return out
+
+
+# ---- the trainer path -----------------------------------------------------
+
+
+def train_configs(off=False):
+    config = texture160_sr_cmde_conv3x3_config()
+    config.data.base_dir = os.path.join(REPO, "datasets")
+    if off:
+        config.model.conv_dispatch = "none"
+    return config
+
+
+def by_norm(got, want):
+    return ((got - want).norm() / want.norm()).item()
+
+
+def train_agreement():
+    """One train step from the same state, batch and seed with the policy on
+    and off (float32, TF32 off, dropout 0.1 drawn alike), then two more:
+    loss, each gradient by norm, and each tensor's update of params and EMA
+    after 3 steps by norm (see TRAIN_PARAM_TOL).  Weights N(0, 0.02) and biases too
+    (so no tensor's scale is 0), warmup 0 (lr 2e-4 from the first step)."""
+    t = time.perf_counter()
+    configs = {"on": train_configs(), "off": train_configs(off=True)}
+    for c in configs.values():
+        c.optim.warmup = 0
+    models = {"on": init_model_random(configs["on"], seed=configs["on"].seed, device="cuda")}
+    g = torch.Generator(device="cuda").manual_seed(5)
+    with torch.no_grad():
+        for name, p in models["on"].named_parameters():
+            if name.endswith("bias"):
+                p.normal_(0.0, 0.02, generator=g)
+    models["off"] = create_model(configs["off"], "cuda")
+    models["off"].load_state_dict(models["on"].state_dict())
+    start = {n: p.detach().clone() for n, p in models["off"].named_parameters()}
+    batch = to_device(next(PKLDataModule(configs["on"]).train_iterator()), torch.device("cuda"))
+    states = {k: create_train_state(configs[k], m.train()) for k, m in models.items()}
+    steps = {k: make_train_step(configs[k], m) for k, m in models.items()}
+    grads_off, result = [], {}
+    for i in range(TRAIN_AGREE_STEPS):
+        metrics = {k: steps[k](states[k], batch) for k in ("on", "off")}
+        grads = {k: {n: p.grad for n, p in models[k].named_parameters()} for k in ("on", "off")}
+        grads_off.append({n: g.clone() for n, g in grads["off"].items()})
+        if i == 0:
+            loss_on, loss_off = (float(metrics[k]["loss"]) for k in ("on", "off"))
+            top = max(g.norm().item() for g in grads["off"].values())
+            errs = {n: (grads["on"][n] - g).norm().item() / max(g.norm().item(), NOISE_LEVEL * top)
+                    for n, g in grads["off"].items()}
+            result.update(loss_on=loss_on, loss_off=loss_off, loss_rel_err=abs(loss_on - loss_off) / abs(loss_off),
+                          grad_norm_on=float(metrics["on"]["grad_norm"]), grad_norm_off=float(metrics["off"]["grad_norm"]),
+                          worst_grad_norm_rel_err=max(errs.values()), worst_grad_tensor=max(errs, key=errs.get))
+    noise = set()
+    for step_grads in grads_off:
+        top = max(g.abs().max().item() for g in step_grads.values())
+        noise |= {n for n, g in step_grads.items() if g.abs().max().item() < NOISE_LEVEL * top}
+    worst_update, worst_param, excluded, total = 0.0, 0.0, 0, 0
+    for label, got_of, want_of in (
+        ("params", dict(models["on"].named_parameters()), dict(models["off"].named_parameters())),
+        ("ema", states["on"].ema.params, states["off"].ema.params),
+    ):
+        for n, want in want_of.items():
+            want, got = want.detach(), got_of[n].detach()
+            total += want.numel()
+            if n in noise:
+                excluded += want.numel()
+                continue
+            worst_update = max(worst_update, by_norm(got - start[n], want - start[n]))
+            small = torch.zeros_like(want, dtype=torch.bool)
+            for step_grads in grads_off:
+                gr = step_grads[n].abs()
+                small |= gr < SMALL_GRAD * gr.max()
+            excluded += int(small.sum())
+            err = torch.where(small, 0.0, (got - want).abs()).max().item()
+            worst_param = max(worst_param, err / want.abs().max().item())
+    result.update(worst_update_norm_rel_err=worst_update, worst_param_rel_err=worst_param,
+                  excluded_elements=excluded, elements=total, noise_tensors=sorted(noise))
+    ok = (result["loss_rel_err"] <= TRAIN_LOSS_TOL and result["worst_grad_norm_rel_err"] <= TRAIN_GRAD_TOL
+          and worst_update <= TRAIN_UPDATE_TOL)
+    phase(
+        "agreement", t,
+        f"train step, conv3x3_kernel on vs off (B={TRAIN_BATCH}, float32): loss {loss_on:.6f} vs {loss_off:.6f}"
+        f" (rel {result['loss_rel_err']:.3e}, tol {TRAIN_LOSS_TOL:.0e}); grad_norm {result['grad_norm_on']:.6f} vs"
+        f" {result['grad_norm_off']:.6f}; worst gradient by norm {result['worst_grad_norm_rel_err']:.3e}"
+        f" ({result['worst_grad_tensor']}, tol {TRAIN_GRAD_TOL:.0e}); after {TRAIN_AGREE_STEPS} steps: worst update"
+        f" by norm {worst_update:.3e} (tol {TRAIN_UPDATE_TOL:.0e}); worst element {worst_param:.3e} of its scale"
+        f" (printed, not gated; the CPU test's {TRAIN_PARAM_TOL:.0e}), with {excluded} of {total} elements of params"
+        f" and EMA excluded as small-gradient or in the {len(noise)} rounding-noise tensors {'ok' if ok else 'FAIL'}",
+    )
+    if not ok:
+        raise RuntimeError("the train step with kernel 4 disagrees with the step without it")
+    return result
+
+
+def step_split(trainer):
+    """One step of ``trainer`` split by CUDA events: the host making a batch
+    and copying it over, forward + loss, backward, optimizer + EMA."""
+    it = trainer.datamodule.train_iterator()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = to_device(trainer.task.prepare_batch(next(it)), trainer.device)
+    torch.cuda.synchronize()
+    data_ms = (time.perf_counter() - t0) * 1e3
+    events = []
+    trainer.train_step(trainer.state, batch, events=events)
+    torch.cuda.synchronize()
+    fwd, bwd, opt = (events[i].elapsed_time(events[i + 1]) for i in range(3))
+    return dict(data_ms=data_ms, forward_loss_ms=fwd, backward_ms=bwd, optimizer_ema_ms=opt)
+
+
+def run_trainer(label, config, steps, expected, evals, restore=True):
+    """`Trainer(config).fit(max_steps=steps)` with every kernel counter at 0
+    just before and read just after; the scalars, the launches, a checkpoint
+    restored into a new trainer, one step's split and the peak memory."""
+    with tempfile.TemporaryDirectory() as log_path:
+        trainer = Trainer(config, log_path)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in WRAPPERS.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        history = trainer.fit(max_steps=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        scalars = read_scalars(os.path.join(log_path, "scalars.jsonl"))
+        last = {tag: (value, step) for tag, value, step in scalars}
+        losses = [v for tag, v, _ in scalars if tag == "train_loss"]
+        result = dict(
+            path=label, steps=steps, wall_s=wall, peak_gib=peak, launches=launches, expected_launches=expected,
+            train_loss=losses, eval_loss=history["eval_loss"],
+            ms_per_step=last["ms_per_step"][0], train_imgs_per_sec=last["train_imgs_per_sec"][0],
+            window_steps=int(last["window_steps"][0]),
+        )
+        ok = all(math.isfinite(v) for v in losses + [v for _, v in history["eval_loss"]])
+        ok = ok and len(history["eval_loss"]) == evals
+        if restore:
+            again = Trainer(config, os.path.join(log_path, "restored"), checkpoint_path=trainer.ckpt.directory)
+            a, b = trainer.state, again.state
+            same = (a.step == b.step == steps and a.ema.num_updates == b.ema.num_updates
+                    and a.scheduler.last_epoch == b.scheduler.last_epoch
+                    and all(torch.equal(p, q) for p, q in zip(a.model.parameters(), b.model.parameters()))
+                    and all(torch.equal(a.ema.params[n], b.ema.params[n]) for n in a.ema.params)
+                    and all(torch.equal(a.optimizer.state[p][k], b.optimizer.state[q][k])
+                            for p, q in zip(a.model.parameters(), b.model.parameters())
+                            for k in ("exp_avg", "exp_avg_sq", "step")))
+            result["checkpoint_restored_exactly"] = same
+            ok = ok and same
+            del again
+        result.update(step_split(trainer))
+    phase(
+        "main", t,
+        f"{label}: Trainer.fit({steps}) {wall:.3f} s wall; sustained window of {result['window_steps']} steps:"
+        f" {result['ms_per_step']:.3f} ms/step, {result['train_imgs_per_sec']:.3f} images/s; peak {peak:.3f} GiB;"
+        f" train_loss {['%.5f' % v for v in losses]}, eval_loss {history['eval_loss']};"
+        f" checkpoint restored exactly: {result.get('checkpoint_restored_exactly', 'not checked')};"
+        f" one step: data {result['data_ms']:.3f} ms (host), forward+loss {result['forward_loss_ms']:.3f} ms,"
+        f" backward {result['backward_ms']:.3f} ms, optimizer+EMA {result['optimizer_ema_ms']:.3f} ms;"
+        f" launches {launches} (expected {expected}) {'ok' if ok and launches == expected else 'FAIL'}",
+    )
+    if not ok:
+        raise RuntimeError(f"{label}: losses not finite, eval or checkpoint wrong")
+    if launches != expected:
+        raise RuntimeError(f"{label}: launches {launches}, expected {expected}")
+    return result
+
+
 # ---- model paths ------------------------------------------------------------
 
 
@@ -615,6 +951,7 @@ def main() -> int:
         "gn_silu_conv3x3": fused_tail.load_library,
         "resblock_fused": fused_block.load_library,
         "fir_resample": fir.load_library,
+        "conv3x3": conv3x3.load_library,
     }
     with ThreadPoolExecutor(len(loaders)) as pool:
         built = dict(zip(loaders, pool.map(lambda load: load(), loaders.values())))
@@ -631,6 +968,11 @@ def main() -> int:
     block_rows = check_blocks()
     check_ncsnpp_sites()
     fir_rows = check_fir()
+    shapes = conv_call_shapes(train_configs())
+    per_step = tuple(sum(n for (ph, *_), n in shapes.items() if ph == p) for p in ("forward", "dx"))
+    if per_step != CONV_PER_TRAIN_STEP:
+        raise RuntimeError(f"kernel 4 calls per train step {per_step}, expected {CONV_PER_TRAIN_STEP}")
+    conv_rows, hmajor_rows = check_conv(shapes)
     phase("kernel", t, "every kernel agrees with its plain version at every shape")
 
     # ---- set-up: the batch and one set of weights ---------------------------
@@ -705,6 +1047,23 @@ def main() -> int:
         "float32 NCSN++ DF2K direct 4x", lambda: kx_sample(gen, kx_model, kx_batch["y"])[0],
         PER_FORWARD_NCSNPP_PATH, STEPS,
     )
+    del kx_model, kx_sample
+
+    # ---- the trainer path: agreement, then Trainer.fit with and without kernel 4
+    agree_train = train_agreement()
+    config = train_configs()
+    config.training.log_freq, config.training.eval_freq = 10, TRAIN_STEPS
+    config.eval.loss_split = "test"  # the val split stays off the card (.chiprunignore)
+    fwd, dx = CONV_PER_TRAIN_STEP
+    expected = {name: 0 for name in WRAPPERS}
+    expected["conv3x3"] = TRAIN_STEPS * (fwd + dx) + EVAL_BATCHES * CONV_PER_EVAL_FORWARD
+    expected["gn_silu_conv3x3"] = EVAL_BATCHES * PER_FORWARD_TAIL_PATH["gn_silu_conv3x3"]
+    main_train = run_trainer("float32 trainer, conv3x3_kernel", config, TRAIN_STEPS, expected, evals=1)
+    off = train_configs(off=True)
+    off.training.log_freq, off.training.eval_freq = TRAIN_OFF_STEPS, 10**9
+    main_train_off = run_trainer(
+        "float32 trainer, policy off", off, TRAIN_OFF_STEPS, {name: 0 for name in WRAPPERS}, evals=0, restore=False,
+    )
 
     bf16 = torch.bfloat16
     tail_line = per_forward_row(
@@ -751,8 +1110,36 @@ def main() -> int:
         k["per_shape"] = [
             r for r in tail_rows + block_rows + fir_rows if r.get("kernel", "gn_silu_conv3x3") == k["name"]
         ]
-    paths = [main_new, main_tail, main_ncsnpp]
-    print(json.dumps({"kernels": kernels, "paths": paths, "agreement": agree}), flush=True)
+    f32 = conv_sums(conv_rows, torch.float32)
+    conv_line = dict(
+        name="conv3x3", route="cuda", source="conditional_score_diffusion_tpu_torch/csrc/conv3x3.cu",
+        replaces="conditional_score_diffusion_tpu/ops/conv_pallas.py:198",
+        launches=main_train["launches"]["conv3x3"],
+        max_abs_err=max(r["max_abs_err"] for r in conv_rows if r["dtype"] == "float32"),
+        **f32["step"],
+        bound_by="operations" if all(r["bound_by"] == "operations" for r in conv_rows if r["dtype"] == "float32")
+        else "bytes",
+        unit=f"one float32 train step of the flagship, B={TRAIN_BATCH}: {fwd} forward and {dx} dx calls"
+             " (the sum over the calls); library_ms is F.conv2d (cuDNN, TF32 off) on the same tensors",
+        forward=f32["forward"], dx=f32["dx"], bfloat16=conv_sums(conv_rows, torch.bfloat16), per_shape=conv_rows,
+    )
+    hmajor_f32 = [r for r in hmajor_rows if r["dtype"] == "float32"]
+    hmajor_line = dict(
+        name="conv3x3_hmajor", route="cuda", source=conv_line["source"],
+        replaces="conditional_score_diffusion_tpu/ops/conv_pallas.py:144",
+        launches=main_train["launches"]["conv3x3"],
+        entry_launches_on_main_path=main_train["launches"]["conv3x3_hmajor"],
+        max_abs_err=max(r["max_abs_err"] for r in hmajor_f32),
+        **{k: sum(r[k] for r in hmajor_f32) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        bound_by="operations" if all(r["bound_by"] == "operations" for r in hmajor_f32) else "bytes",
+        unit="the (H, W, B, C) entry of the conv3x3 kernel (one CUDA kernel, other strides) at its two checked"
+             " shapes, float32, one call each; launches counts that CUDA kernel on the trainer path, where"
+             " every call comes through the NHWC entry (no path calls the (H, W, B, C) entry, in JAX neither)",
+        per_shape=hmajor_rows,
+    )
+    kernels += [conv_line, hmajor_line]
+    paths = [main_new, main_tail, main_ncsnpp, main_train, main_train_off]
+    print(json.dumps({"kernels": kernels, "paths": paths, "agreement": agree + [agree_train]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0

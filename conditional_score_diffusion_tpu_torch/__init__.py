@@ -8,9 +8,12 @@ package; what it needs from there is copied.
 
 The slices ported so far are the flagship CMDE conditional PC sampler
 (`ddpm_paired`, multi-speed VE SDE, conditional reverse diffusion +
-Langevin, in float32 or bfloat16 compute) and the NCSN++ DF2K direct 4x
-sampler (`ncsnpp_KxSR` under VS-CMDE), with five TPU kernels as CUDA
+Langevin, in float32 or bfloat16 compute), the NCSN++ DF2K direct 4x
+sampler (`ncsnpp_KxSR` under VS-CMDE) and the flagship trainer (`losses/`,
+`training/`, `main.py --mode train`), with seven TPU kernels as CUDA
 kernels: the fused GroupNorm+SiLU+conv3x3 tail (`ops/fused_tail.py`), the
-whole resblock and its split-skip variant (`ops/fused_block.py`) and the
-factor-2 FIR upsample and downsample (`ops/fir.py`), sources in `csrc/`.
+whole resblock and its split-skip variant (`ops/fused_block.py`), the
+factor-2 FIR upsample and downsample (`ops/fir.py`) and the 3x3 conv with
+its input gradient, in NHWC and (H, W, B, C) (`ops/conv3x3.py`), sources in
+`csrc/`.
 """

@@ -7,6 +7,7 @@ from .texture160_kxsr_ncsnpp import get_config as texture160_kxsr_ncsnpp_config
 from .texture160_kxsr_ncsnpp_block import get_config as texture160_kxsr_ncsnpp_block_config
 from .texture160_sr_cmde import get_config as texture160_sr_cmde_config
 from .texture160_sr_cmde_bf16_block import get_config as texture160_sr_cmde_bf16_block_config
+from .texture160_sr_cmde_conv3x3 import get_config as texture160_sr_cmde_conv3x3_config
 
 __all__ = [
     "Config",
@@ -18,4 +19,5 @@ __all__ = [
     "texture160_kxsr_ncsnpp_config",
     "texture160_sr_cmde_bf16_block_config",
     "texture160_sr_cmde_config",
+    "texture160_sr_cmde_conv3x3_config",
 ]

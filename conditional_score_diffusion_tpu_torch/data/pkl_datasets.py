@@ -1,21 +1,31 @@
-"""The test split of a `.pklv4` dataset, as the JAX package's
-`data/pkl_datasets.py` batches it.
+"""The splits of a `.pklv4` dataset, as the JAX package's
+`data/pkl_datasets.py` batches them.
 
-Copied from there: `pkl_paths`, `load_pkl_images`, and the test phase of two
-datamodules (no flip, crop or rotation at test time; the numpy batch
-assembly of `data/native.py`, which its C++ extension only speeds up):
+Copied from there: `pkl_paths`, `load_pkl_images`, `_iterate` and the
+batches of two datamodules (:class:`PKLDataModule`; the numpy batch assembly
+of `data/native.py`, which its C++ extension only speeds up, by one float32
+ulp):
 
 * `General_PKLDataset`: GT images with on-the-fly super-resolution
   degradation (y is the bicubic LR upsampled back by nearest neighbour);
 * `LRHR_PKLDataset`: stored LQ/GT pairs, y the LQ image as it is (or
   upsampled by nearest neighbour where the recipe sets ``upscale_lr``).
+
+The train split is shuffled every epoch and, with ``data.use_flip``, each
+image (and its LQ partner) flipped horizontally by a mask drawn from the
+same numpy generator, ``np.random.default_rng(seed)``, as in JAX: the port
+and the JAX package give the same train batches.  Random crops and
+rotations (``data.use_crop``, ``data.use_rot``) and the colorization and
+inpainting tasks are not ported.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
-from typing import Dict, Iterator, List
+import queue
+import threading
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -64,23 +74,31 @@ def load_pkl_images(path: str, n_max: int = int(1e9)) -> List[np.ndarray]:
     return [np.asarray(im) for im in images[:n_max]]
 
 
-def assemble_batch(images: List[np.ndarray]) -> np.ndarray:
-    """uint8 HWC images -> one float32 [0, 1] NHWC batch."""
-    return np.stack([im.astype(np.float32) / 255.0 for im in images])
+def assemble_batch(images: List[np.ndarray], flips: Optional[np.ndarray] = None) -> np.ndarray:
+    """uint8 HWC images -> one float32 [0, 1] NHWC batch; image ``i``
+    flipped horizontally where ``flips[i]``."""
+    return np.stack([
+        (im[:, ::-1] if flips is not None and flips[i] else im).astype(np.float32) / 255.0
+        for i, im in enumerate(images)
+    ])
 
 
-def make_sr_batch(images: List[np.ndarray], image_size: int, scale: int) -> Dict[str, np.ndarray]:
-    """``{'x': HR, 'y': SR-degraded HR}`` for one test batch."""
-    x = assemble_batch(images)
+def make_sr_batch(
+    images: List[np.ndarray], image_size: int, scale: int, flips: Optional[np.ndarray] = None
+) -> Dict[str, np.ndarray]:
+    """``{'x': HR, 'y': SR-degraded HR}`` for one batch."""
+    x = assemble_batch(images, flips)
     if x.shape[1] != image_size:
         x = bicubic_resize_np(x, image_size)
     return {"x": x, "y": sr_degrade(x, scale)}
 
 
-def make_lrhr_batch(lr: List[np.ndarray], hr: List[np.ndarray], upscale_lr: bool) -> Dict[str, np.ndarray]:
-    """``{'x': HR, 'y': LQ}`` of stored pairs (LQ upsampled by nearest
-    neighbour to the HR size when ``upscale_lr``)."""
-    x, y = assemble_batch(hr), assemble_batch(lr)
+def make_lrhr_batch(
+    lr: List[np.ndarray], hr: List[np.ndarray], upscale_lr: bool, flips: Optional[np.ndarray] = None
+) -> Dict[str, np.ndarray]:
+    """``{'x': HR, 'y': LQ}`` of stored pairs, each pair flipped together
+    (LQ upsampled by nearest neighbour to the HR size when ``upscale_lr``)."""
+    x, y = assemble_batch(hr, flips), assemble_batch(lr, flips)
     if upscale_lr:
         y = nearest_upsample_np(y, x.shape[1] // y.shape[1])
     return {"x": x, "y": y}
@@ -89,18 +107,134 @@ def make_lrhr_batch(lr: List[np.ndarray], hr: List[np.ndarray], upscale_lr: bool
 def iter_test_batches(config, batch_size=None) -> Iterator[Dict[str, np.ndarray]]:
     """The test split in order, as the recipe's datamodule's `test_iterator`
     yields it (incomplete last batch dropped)."""
-    bs = batch_size or config.eval.batch_size
-    paths = pkl_paths(config, "test")
-    hr = load_pkl_images(paths["GT"])
-    if config.data.datamodule == "LRHR_PKLDataset":
-        lr = load_pkl_images(paths["LQ"])
-        if len(lr) != len(hr):
-            raise ValueError(f"{len(lr)} LQ images for {len(hr)} GT images")
-        upscale_lr = config.data.get("upscale_lr", False)
-        for i in range(0, len(hr) - bs + 1, bs):
-            yield make_lrhr_batch(lr[i : i + bs], hr[i : i + bs], upscale_lr)
-        return
-    if config.data.task != "super-resolution":
-        raise NotImplementedError(f"task {config.data.task!r} is not ported")
-    for i in range(0, len(hr) - bs + 1, bs):
-        yield make_sr_batch(hr[i : i + bs], config.data.image_size, config.data.get("scale", 4))
+    return PKLDataModule(config).test_iterator(batch_size)
+
+
+class PKLDataModule:
+    """The split iterators of `General_PKLDataset` and `LRHR_PKLDataset`
+    (JAX `GeneralPKLDataModule`, `LRHRPKLDataModule`).
+
+    A split's files are read at its first use, so a machine that holds only
+    some splits can iterate those."""
+
+    def __init__(self, config):
+        self.config = config
+        self.seed = config.seed
+        if config.data.datamodule not in ("General_PKLDataset", "LRHR_PKLDataset"):
+            raise NotImplementedError(f"datamodule {config.data.datamodule!r} is not ported")
+        self.lrhr = config.data.datamodule == "LRHR_PKLDataset"
+        self._images: Dict[str, Dict[str, List[np.ndarray]]] = {}
+
+    def images(self, phase: str) -> Dict[str, List[np.ndarray]]:
+        if phase not in self._images:
+            paths = pkl_paths(self.config, phase)
+            split = {"hr": load_pkl_images(paths["GT"])}
+            if self.lrhr:
+                split["lr"] = load_pkl_images(paths["LQ"])
+                if len(split["lr"]) != len(split["hr"]):
+                    raise ValueError(f"{len(split['lr'])} LQ images for {len(split['hr'])} GT images")
+            self._images[phase] = split
+        return self._images[phase]
+
+    def _iterate(self, n: int, batch_size: int, shuffle: bool, loop: bool, make_batch: Callable):
+        rng = np.random.default_rng(self.seed)
+        while True:
+            order = rng.permutation(n) if shuffle else np.arange(n)
+            for i in range(0, n - batch_size + 1, batch_size):
+                yield make_batch(order[i : i + batch_size], rng)
+            if not loop:
+                return
+
+    def make_batch_fn(self, phase: str) -> Callable:
+        """``make_batch(indices, rng)`` of ``phase``: the flip mask is drawn
+        from ``rng`` (train only, with ``data.use_flip``)."""
+        c = self.config
+        use_flip = c.data.get("use_flip", False) and phase == "train"
+        images = self.images(phase)
+        hr = images["hr"]
+
+        def flips_of(idx, rng):
+            return (rng.random(len(idx)) < 0.5).astype(np.uint8) if use_flip else None
+
+        if self.lrhr:
+            if phase == "train" and (c.data.get("use_crop", False) or c.data.get("use_rot", False)):
+                raise NotImplementedError("random crops and rotations of LRHR_PKLDataset are not ported")
+            upscale_lr, lr = c.data.get("upscale_lr", False), images["lr"]
+
+            def make_batch(idx, rng):
+                flips = flips_of(idx, rng)
+                return make_lrhr_batch([lr[i] for i in idx], [hr[i] for i in idx], upscale_lr, flips)
+
+            return make_batch
+        if c.data.task != "super-resolution":
+            raise NotImplementedError(f"task {c.data.task!r} is not ported")
+        image_size, scale = c.data.image_size, c.data.get("scale", 4)
+
+        def make_batch(idx, rng):
+            flips = flips_of(idx, rng)
+            return make_sr_batch([hr[i] for i in idx], image_size, scale, flips)
+
+        return make_batch
+
+    def iterator(self, phase: str, batch_size: int) -> Iterator[Dict[str, np.ndarray]]:
+        """Batches of ``phase``: the train split shuffled and looped, the
+        others in order, once (the incomplete last batch dropped)."""
+        train = phase == "train"
+        n = len(self.images(phase)["hr"])
+        return self._iterate(n, batch_size, train, train, self.make_batch_fn(phase))
+
+    def train_iterator(self, batch_size: Optional[int] = None):
+        return self.iterator("train", batch_size or self.config.training.batch_size)
+
+    def test_iterator(self, batch_size: Optional[int] = None):
+        return self.iterator("test", batch_size or self.config.eval.batch_size)
+
+
+class PrefetchIterator:
+    """Batches of ``iterator`` made ahead on a background thread, at most
+    ``depth`` waiting (JAX `data/native.py:PrefetchIterator`): the host
+    builds the next batch while the device runs the step.  `close` stops
+    the thread (the train iterator never ends by itself)."""
+
+    def __init__(self, iterator, depth: int = 2):
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._sentinel = object()
+        self._err: Optional[BaseException] = None
+        self._stop = threading.Event()
+
+        def run():
+            try:
+                for item in iterator:
+                    if not self._put(item):
+                        return
+            except BaseException as e:  # raised again in the consumer
+                self._err = e
+            finally:
+                self._put(self._sentinel)
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def close(self, timeout: float = 10.0) -> None:
+        self._stop.set()
+        self._thread.join(timeout)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._sentinel:
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        return item

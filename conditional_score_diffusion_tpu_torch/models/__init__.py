@@ -13,11 +13,16 @@ get_model = registry.models.get
 
 def create_model(config, device="cuda") -> nn.Module:
     """The model named by ``config.model.name``, built on ``device`` with
-    the DDPM default init, in eval mode; its kernel call sites follow the
-    recipe's ``model.fused_tail`` / ``model.fused_block``."""
+    the DDPM default init (from torch's default generator), in eval mode;
+    its kernel call sites follow the recipe's ``model.fused_tail`` /
+    ``model.fused_block`` and its 3x3 convs ``model.conv_dispatch``
+    (`layers.CONV_POLICIES`)."""
+    from .layers import apply_conv_dispatch
+
     cls = get_model(config.model.name)
     with torch.device(device):
         model = cls.from_config(config)
+    apply_conv_dispatch(model, config.model.get("conv_dispatch", "none"))
     return model.eval()
 
 

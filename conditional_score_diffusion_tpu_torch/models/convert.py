@@ -15,7 +15,8 @@ Module names are the same on both sides (`models/ddpm.py`,
 The split banks (SplitGroupNorm, SplitConv3x3, SplitConv1x1, SplitNIN) hold
 the same parameters as their joint modules, so they need nothing of their
 own.  The Flax tree is taken as nested dicts of numpy arrays
-(``jax.device_get``).
+(``jax.device_get``).  :func:`load_jax_train_state` carries a whole JAX
+train state over: parameters, EMA, Adam's moments and the schedule.
 """
 
 from __future__ import annotations
@@ -75,3 +76,44 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             node = node.setdefault(p, {})
         node[leaf] = np.ascontiguousarray(arr)
     return params
+
+
+def load_jax_train_state(state, jax_state: Mapping) -> None:
+    """Carry a JAX `TrainState` over into the port's `training.state.TrainState`
+    ``state`` (built from the same recipe), in place.
+
+    ``jax_state`` holds the JAX state's pieces as numpy arrays (the caller
+    takes them out of the optax tree with `jax.device_get`):
+
+    * ``step``; ``params`` (the Flax tree);
+    * ``ema``: ``{'decay', 'num_updates', 'params'}``;
+    * ``adam``: optax ``ScaleByAdamState`` as ``{'count', 'mu', 'nu'}`` (mu
+      and nu Flax trees), which become `torch.optim.Adam`'s per-parameter
+      ``exp_avg``, ``exp_avg_sq`` and ``step``;
+    * ``schedule_count``: ``ScaleByScheduleState.count``, the warmup
+      schedule's position, which becomes the `LambdaLR`'s.
+    """
+    model = state.model
+    model.load_state_dict(flax_to_state_dict(jax_state["params"]), strict=True)
+    ema = jax_state["ema"]
+    with torch.no_grad():
+        for name, value in flax_to_state_dict(ema["params"]).items():
+            state.ema.params[name].copy_(value)
+    state.ema.decay = float(ema["decay"])
+    state.ema.num_updates = int(ema["num_updates"])
+
+    adam = jax_state["adam"]
+    mu, nu = flax_to_state_dict(adam["mu"]), flax_to_state_dict(adam["nu"])
+    count = int(adam["count"])
+    for name, p in model.named_parameters():
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": mu[name].to(p.device, p.dtype),
+            "exp_avg_sq": nu[name].to(p.device, p.dtype),
+        }
+    sched = state.scheduler
+    sched.last_epoch = int(jax_state["schedule_count"])
+    for group, lr_lambda in zip(state.optimizer.param_groups, sched.lr_lambdas):
+        group["lr"] = group["initial_lr"] * lr_lambda(sched.last_epoch)
+    sched._last_lr = [group["lr"] for group in state.optimizer.param_groups]
+    state.step = int(jax_state["step"])

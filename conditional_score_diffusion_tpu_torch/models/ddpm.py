@@ -1,5 +1,5 @@
-"""DDPM U-Net and its paired (x, y) variant in PyTorch, NHWC (JAX
-`models/ddpm.py`: `DDPM`, `DDPMPaired`).
+"""DDPM U-Net and its paired (x, y) variants in PyTorch, NHWC (JAX
+`models/ddpm.py`: `DDPM`, `DDPMPaired`, `DDPMPairedSR3`).
 
 Submodules carry the JAX module names (``conv_in``, ``down_0_0``,
 ``down_attn_3_0``, ``mid_block0``, ``up_5_2``, ``norm_out``, ...), so a
@@ -201,3 +201,12 @@ class DDPMPaired(nn.Module):
         xc = x.shape[-1]
         out = self.unet(torch.cat([x, y], dim=-1), cond)
         return {"x": out[..., :xc], "y": out[..., xc:]}
+
+
+@register_model(name="ddpm_paired_SR3")
+class DDPMPairedSR3(DDPMPaired):
+    """SR3/CDE estimator: y enters the network clean, the output is the
+    score of x alone (JAX `DDPMPairedSR3`)."""
+
+    def forward(self, inputs, cond):
+        return self.unet(torch.cat([inputs["x"], inputs["y"]], dim=-1), cond)

@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.conv3x3 import conv3x3
 from ..ops.fused_block import resblock_fused, resblock_fused_split
 from ..ops.fused_tail import conv3x3_nhwc, group_norm_stats, gn_silu_conv3x3
 
@@ -84,6 +85,28 @@ def fused_split_block_applicable(x, skip, act, train: bool, out_ch: int, enabled
     return fused_block_candidate_policy(concat_shape, out_ch)
 
 
+#: The conv lowerings a recipe can name (``config.model.conv_dispatch``;
+#: JAX `NAMED_CONV_POLICIES`, `models/layers.py:117-132`).  The JAX names
+#: ``lowres_im2col``, ``s2d_highres`` and ``tuned`` are exact-math XLA
+#: rewrites for the TPU (`ops/im2col.py`, `ops/space_to_depth.py`); on the
+#: port they, like ``none``, mean `F.conv2d` (cuDNN).  ``conv3x3_kernel``
+#: sends every 3x3 stride-1 SAME conv, in train and eval mode and on both
+#: halves of a split conv, to `ops.conv3x3.conv3x3` (TPU kernel 4, which
+#: the JAX package never named a policy for because Mosaic faulted:
+#: `ops/conv_pallas.py:17-22`).  Stride-2 downsampling convs keep `F.conv2d`.
+CONV_POLICIES = {"none": False, "lowres_im2col": False, "s2d_highres": False, "tuned": False, "conv3x3_kernel": True}
+
+
+def apply_conv_dispatch(model: nn.Module, name: str = "none") -> nn.Module:
+    """Set the conv lowering named ``name`` on every 3x3 conv of ``model``."""
+    if name not in CONV_POLICIES:
+        raise KeyError(f"unknown conv_dispatch {name!r}; known: {', '.join(CONV_POLICIES)}")
+    for m in model.modules():
+        if isinstance(m, Conv3x3):
+            m.use_kernel = CONV_POLICIES[name] and m.stride == 1 and m.padding == 1
+    return model
+
+
 def legacy_num_groups(ch: int) -> int:
     """DDPM-era GroupNorm(32) with a gcd fallback for tiny channel counts."""
     return 32 if ch % 32 == 0 else math.gcd(ch, 32)
@@ -107,16 +130,28 @@ class Dense(nn.Module):
 
 
 class Conv3x3(nn.Module):
-    """3x3 conv with DDPM init, NHWC in and out, OIHW weight."""
+    """3x3 conv with DDPM init, NHWC in and out, OIHW weight.
+
+    ``use_kernel`` (set by :func:`apply_conv_dispatch`, stride 1 and padding
+    1 only): the conv runs on `ops.conv3x3.conv3x3`, bias added in float32
+    in its epilogue; otherwise on `F.conv2d`."""
 
     def __init__(self, in_ch: int, out_ch: int, init_scale: float = 1.0, stride: int = 1, padding: int = 1):
         super().__init__()
         self.weight = nn.Parameter(default_init_(torch.empty(out_ch, in_ch, 3, 3), init_scale))
         self.bias = nn.Parameter(torch.zeros(out_ch))
         self.stride, self.padding = stride, padding
+        self.use_kernel = False
+
+    def conv(self, x, w, bias=None):
+        """The 3x3 conv of NHWC ``x`` with ``w`` (already in x's dtype) and
+        an optional float32 ``bias``, by the chosen lowering."""
+        if self.use_kernel:
+            return conv3x3(x.contiguous(), w, bias)
+        return conv3x3_nhwc(x, w, None if bias is None else bias.to(x.dtype), self.stride, self.padding)
 
     def forward(self, x):
-        return conv3x3_nhwc(x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.stride, self.padding)
+        return self.conv(x, self.weight.to(x.dtype), self.bias.float())
 
 
 class NIN(nn.Module):
@@ -211,7 +246,7 @@ class SplitConv3x3(Conv3x3):
     def forward(self, a, b):
         ca = a.shape[-1]
         w = self.weight.to(a.dtype)
-        out = conv3x3_nhwc(a, w[:, :ca]) + conv3x3_nhwc(b, w[:, ca:])
+        out = self.conv(a, w[:, :ca]) + self.conv(b, w[:, ca:])
         return out + self.bias.to(a.dtype)
 
 

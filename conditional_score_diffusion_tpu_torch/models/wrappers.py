@@ -8,7 +8,7 @@ marginal std of each domain.
 from __future__ import annotations
 
 import copy
-from typing import Callable, Optional
+from typing import Callable, Mapping, Optional
 
 import torch
 
@@ -20,10 +20,22 @@ def _map(fn, tree):
 
 
 def get_model_fn(
-    model: torch.nn.Module, train: bool = False, compute_dtype: Optional[torch.dtype] = None
+    model: torch.nn.Module,
+    train: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
+    params: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> Callable:
     """``model_fn(inputs, labels)``: the raw network (``inputs`` a tensor or a
     dict of tensors), in train or eval mode, without autograd in eval.
+
+    The mode is set around each call and the module's own mode restored
+    after it, so a score built from a live model (an eval loss, a sampler
+    built mid-training) leaves the caller's module as it was: JAX applies a
+    stateless module.
+
+    ``params``: run the module with these tensors in place of its own
+    parameters (`torch.func.functional_call`), as JAX applies a module to a
+    params tree (the EMA weights of an eval loss).
 
     ``compute_dtype`` (e.g. ``torch.bfloat16``): run a copy of ``model``
     with its parameters cast to that type (the caller's module is left as
@@ -34,13 +46,22 @@ def get_model_fn(
     """
     if compute_dtype is not None:
         model = copy.deepcopy(model).to(compute_dtype)
-    model.train(train)
+        if params is not None:
+            params = {k: v.to(compute_dtype) for k, v in params.items()}
 
     def model_fn(inputs, labels):
         if compute_dtype is not None:
             inputs = _map(lambda x: x.to(compute_dtype), inputs)
-        with torch.set_grad_enabled(train):
-            out = model(inputs, labels)
+        mode = model.training
+        model.train(train)
+        try:
+            with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+                if params is None:
+                    out = model(inputs, labels)
+                else:
+                    out = torch.func.functional_call(model, params, (inputs, labels))
+        finally:
+            model.train(mode)
         if compute_dtype is not None:
             out = _map(lambda x: x.float(), out)
         return out
@@ -64,16 +85,17 @@ def get_score_fn(
     train: bool = False,
     continuous: bool = False,
     compute_dtype: Optional[torch.dtype] = None,
+    params: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> Callable:
     """``score_fn(inputs, t)`` of a conditional model under a continuous-time
     multi-speed VE (or single VE) SDE; ``inputs`` is ``{'x': ..., 'y': ...}``
-    and ``t`` a per-batch time vector in [0, T].  ``compute_dtype`` as in
-    :func:`get_model_fn`."""
+    and ``t`` a per-batch time vector in [0, T].  ``compute_dtype`` and
+    ``params`` as in :func:`get_model_fn`."""
     if not (conditional and continuous):
         raise NotImplementedError("only the conditional continuous-time score is ported")
     if not (is_multispeed(sde) or isinstance(sde, VESDE)):
         raise NotImplementedError(f"SDE {type(sde).__name__} is not ported")
-    model_fn = get_model_fn(model, train=train, compute_dtype=compute_dtype)
+    model_fn = get_model_fn(model, train=train, compute_dtype=compute_dtype, params=params)
     N = sde["x"].N if is_multispeed(sde) else sde.N
 
     def score_fn(inputs, t):

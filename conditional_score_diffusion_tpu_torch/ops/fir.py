@@ -13,7 +13,9 @@ for sm_90a into `_build/` at first use, and it is called through ctypes.
 then take the plain version (:func:`fir_upsample2_plain`,
 :func:`fir_downsample2_plain`: `ops/upfirdn.py` at factor 2) for a CPU
 tensor and launch the kernel for a CUDA tensor; there is no other path.
-``.launches`` on each wrapper counts its kernel's launches.
+``.launches`` on each wrapper counts its kernel's launches.  The kernels
+have no backward yet: where a gradient could flow, the call goes through
+`ops.forward_only`, whose backward raises (:data:`NO_BACKWARD`).
 
 With the per-axis taps ``c = k / sum(k) * gain`` (gain 2 for up, 1 for
 down) and zeros outside the image, in polyphase form::
@@ -35,11 +37,13 @@ import numpy as np
 import torch
 
 from . import nvcc
+from .forward_only import forward_only
 from .fused_tail import DTYPES, check_arg, check_input
 from .nvcc import KernelLibrary
 from .upfirdn import downsample_2d_plain, upsample_2d_plain
 
 FIR_KERNEL = (1.0, 3.0, 3.0, 1.0)  # every recipe's fir_kernel
+NO_BACKWARD = "the FIR gradient comes with NCSN++ training (ROADMAP.md section 1, item 8)"
 
 
 def norm_taps(k: Sequence[float], gain: float) -> np.ndarray:
@@ -94,11 +98,15 @@ def fir_upsample2(x: torch.Tensor, k: Sequence[float] = FIR_KERNEL) -> torch.Ten
     check_arg("x", x, x.device, x.dtype, x.shape)
     taps = norm_taps(k, gain=2.0)  # sqrt of the 2-D gain 4, per axis
     if x.device.type == "cpu":
-        return fir_upsample2_plain(x, k)
-    _, H, W, _ = x.shape
-    out = _launch("fir_upsample2", x, (2 * H, 2 * W), taps)
-    fir_upsample2.launches += 1
-    return out
+        return forward_only("fir_upsample2", lambda: fir_upsample2_plain(x, k), (x,), NO_BACKWARD)
+
+    def run():
+        _, H, W, _ = x.shape
+        out = _launch("fir_upsample2", x, (2 * H, 2 * W), taps)
+        fir_upsample2.launches += 1
+        return out
+
+    return forward_only("fir_upsample2", run, (x,), NO_BACKWARD)
 
 
 def fir_downsample2(x: torch.Tensor, k: Sequence[float] = FIR_KERNEL) -> torch.Tensor:
@@ -112,10 +120,14 @@ def fir_downsample2(x: torch.Tensor, k: Sequence[float] = FIR_KERNEL) -> torch.T
     if H % 2 or W % 2:
         raise ValueError(f"fir_downsample2 needs even H and W, got {H}x{W}")
     if x.device.type == "cpu":
-        return fir_downsample2_plain(x, k)
-    out = _launch("fir_downsample2", x, (H // 2, W // 2), taps)
-    fir_downsample2.launches += 1
-    return out
+        return forward_only("fir_downsample2", lambda: fir_downsample2_plain(x, k), (x,), NO_BACKWARD)
+
+    def run():
+        out = _launch("fir_downsample2", x, (H // 2, W // 2), taps)
+        fir_downsample2.launches += 1
+        return out
+
+    return forward_only("fir_downsample2", run, (x,), NO_BACKWARD)
 
 
 fir_upsample2.launches = 0

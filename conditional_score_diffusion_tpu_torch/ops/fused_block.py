@@ -12,7 +12,9 @@ it for sm_90a into `_build/` at first use, and it is called through ctypes.
 arguments, then take the plain version (:func:`resblock_fused_plain`,
 :func:`resblock_fused_split_plain`) for CPU tensors and launch the kernel
 for CUDA tensors; there is no other path.  ``.launches`` on each wrapper
-counts its kernel's launches.
+counts its kernel's launches.  The kernels have no backward (eval only, as
+in JAX): where a gradient could flow, the call goes through
+`ops.forward_only`, whose backward raises.
 
 The block, in eval mode (dropout is the identity)::
 
@@ -46,7 +48,8 @@ import torch
 import torch.nn.functional as F
 
 from . import nvcc
-from .fused_tail import DTYPES, check_arg, check_input, conv3x3_nhwc, group_norm_stats
+from .forward_only import forward_only
+from .fused_tail import DTYPES, EVAL_ONLY, check_arg, check_input, conv3x3_nhwc, group_norm_stats
 from .nvcc import KernelLibrary
 
 
@@ -200,11 +203,9 @@ def resblock_fused(
         gamma1=gamma1, beta1=beta1, num_groups1=num_groups1, w1=w1, b1=b1,
         shortcut_w=shortcut_w, shortcut_b=shortcut_b, skip_rescale=skip_rescale,
     )
-    out = _run("resblock_fused", x, None, **kwargs)
-    if out is None:
-        return resblock_fused_plain(x, **kwargs)
-    resblock_fused.launches += 1
-    return out
+    return forward_only(
+        "resblock_fused", lambda: _call(resblock_fused, x, None, kwargs), [x, *kwargs.values()], EVAL_ONLY
+    )
 
 
 def resblock_fused_split(
@@ -226,11 +227,22 @@ def resblock_fused_split(
         gamma1=gamma1, beta1=beta1, num_groups1=num_groups1, w1=w1, b1=b1,
         shortcut_w=shortcut_w, shortcut_b=shortcut_b, skip_rescale=skip_rescale,
     )
-    out = _run("resblock_fused_split", x, skip, **kwargs)
-    if out is None:
-        return resblock_fused_split_plain(x, skip, **kwargs)
-    resblock_fused_split.launches += 1
-    return out
+    return forward_only(
+        "resblock_fused_split", lambda: _call(resblock_fused_split, x, skip, kwargs),
+        [x, skip, *kwargs.values()], EVAL_ONLY,
+    )
+
+
+def _call(wrapper, x, skip, kwargs):
+    """The call as the wrapper makes it: the kernel on CUDA (counted), the
+    plain version on the CPU."""
+    out = _run(wrapper.__name__, x, skip, **kwargs)
+    if out is not None:
+        wrapper.launches += 1
+        return out
+    if skip is None:
+        return resblock_fused_plain(x, **kwargs)
+    return resblock_fused_split_plain(x, skip, **kwargs)
 
 
 resblock_fused.launches = 0

@@ -10,7 +10,9 @@ what its design does about that).  `ops/nvcc.py` builds it for sm_90a into
 :func:`gn_silu_conv3x3` takes the kernel for a CUDA tensor and the plain
 version :func:`gn_silu_conv3x3_plain` for a CPU tensor, after the same
 checks of its arguments on both; there is no other path.
-``gn_silu_conv3x3.launches`` counts the kernel's launches.
+``gn_silu_conv3x3.launches`` counts the kernel's launches.  The kernel has
+no backward (eval only, as in JAX): where a gradient could flow, the call
+goes through `ops.forward_only`, whose backward raises.
 
 Layouts: ``x`` NHWC, ``w`` OIHW (PyTorch's conv layout; the JAX function
 takes HWIO), ``gamma``/``beta`` (Cin,), ``bias`` (Cout,), ``temb`` (B, Cout).
@@ -26,10 +28,16 @@ import torch
 import torch.nn.functional as F
 
 from . import nvcc
+from .forward_only import forward_only
 from .nvcc import KernelLibrary
 
 GN_EPS = 1e-6  # GroupNorm epsilon of the DDPM resblock
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernels' dtype codes
+# Why the eval kernels (this tail, `ops/fused_block.py`) have no backward.
+EVAL_ONLY = (
+    "an eval-mode kernel, as in JAX, whose call sites are gated on eval mode; "
+    "no ROADMAP.md item trains through it (train-mode blocks run unfused)"
+)
 
 
 def group_norm_stats(x: torch.Tensor, num_groups: int, eps: float = GN_EPS):
@@ -143,9 +151,15 @@ def gn_silu_conv3x3(
         check_arg("bias", bias, dev, torch.float32, (Cout,))
     if temb is not None:
         check_arg("temb", temb, dev, torch.float32, (B, Cout))
+    args = (x, w, gamma, beta, num_groups, bias, temb)
     if dev.type == "cpu":
-        return gn_silu_conv3x3_plain(x, w, gamma, beta, num_groups, bias, temb)
+        return forward_only("gn_silu_conv3x3", lambda: gn_silu_conv3x3_plain(*args), args, EVAL_ONLY)
+    return forward_only("gn_silu_conv3x3", lambda: _launch(*args), args, EVAL_ONLY)
 
+
+def _launch(x, w, gamma, beta, num_groups, bias, temb):
+    B, H, W, Cin = x.shape
+    Cout, dev = w.shape[0], x.device
     lib = load_library().lib
     out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=dev)
     scale_shift = torch.empty((2, B, Cin), dtype=torch.float32, device=dev)

@@ -54,7 +54,7 @@ from .models.layers import (
 )
 from .models.layerspp import AttnBlockpp
 from .models.wrappers import get_conditional_score_fn, get_score_fn
-from .ops import fir, fused_block, fused_tail
+from .ops import conv3x3, fir, fused_block, fused_tail
 from .sampling import get_pc_conditional_sampler
 from .sde import build_sde
 from .training.schedules import is_decreasing_variance, sigma_y_at_step
@@ -77,6 +77,7 @@ def plain_versions():
         (layers, "resblock_fused_split", fused_block.resblock_fused_split_plain),
         (fir, "fir_upsample2", fir.fir_upsample2_plain),
         (fir, "fir_downsample2", fir.fir_downsample2_plain),
+        (layers, "conv3x3", conv3x3.conv3x3_plain),
     ]
     real = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
     for mod, name, fn in patched:

@@ -1,0 +1,103 @@
+"""Where a train step's time goes on the card.
+
+    python -m conditional_score_diffusion_tpu_torch.profile_train_step [--steps 4] [--pairs 2]
+
+The flagship trainer path (`configs.texture160_sr_cmde_conv3x3`: full width,
+float32 with TF32 off, batch 16, one batch of the texture160 train split,
+the DDPM init from the recipe's seed), with kernel 4 on (``conv_dispatch =
+'conv3x3_kernel'``) and off (``'none'``: cuDNN): a warm-up step each, then
+``--steps`` steps timed by the host clock after a synchronize, on and off in
+turns (on, off, off, on, ...); then one profiled window of 2 steps each,
+whose kernels are listed by device time with the device's busy share.  The
+card's name and power limit are printed first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import statistics
+import subprocess
+import time
+
+import torch
+
+from .configs import texture160_sr_cmde_conv3x3_config
+from .data.pkl_datasets import PKLDataModule
+from .models import create_model
+from .training.state import create_train_state
+from .training.steps import make_train_step, seeded
+from .training.trainer import to_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--steps", type=int, default=4, help="train steps per timed run")
+    ap.add_argument("--pairs", type=int, default=2, help="(on, off) pairs of timed runs")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train_step: no CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    print(f"card: {smi}", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+
+    configs = {"on": texture160_sr_cmde_conv3x3_config(), "off": texture160_sr_cmde_conv3x3_config()}
+    configs["off"].model.conv_dispatch = "none"
+    for c in configs.values():
+        c.data.base_dir = os.path.join(REPO, "datasets")
+    with seeded(configs["on"].seed, device):
+        models = {"on": create_model(configs["on"], device)}
+    models["off"] = create_model(configs["off"], device)
+    models["off"].load_state_dict(models["on"].state_dict())
+    states = {k: create_train_state(configs[k], m.train()) for k, m in models.items()}
+    steps = {k: make_train_step(configs[k], m) for k, m in models.items()}
+    batch = to_device(next(PKLDataModule(configs["on"]).train_iterator()), device)
+
+    def run(key, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            steps[key](states[key], batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    run("on", 1), run("off", 1)  # warm-up: cuDNN plans, the kernel's build
+    times = {"on": [], "off": []}
+    for i in range(args.pairs):
+        for key in (("on", "off") if i % 2 == 0 else ("off", "on")):
+            times[key].append(run(key, args.steps))
+    for key in ("on", "off"):
+        print(
+            f"kernel 4 {key}: ms per train step {['%.3f' % t for t in times[key]]},"
+            f" median {statistics.median(times[key]):.3f}",
+            flush=True,
+        )
+    print(f"peak memory of both models and their states: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for key in ("on", "off"):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            wall = run(key, 2) * 2 / 1e3
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(e.self_device_time_total for e in events)
+        print(
+            f"profiled 2 train steps, kernel 4 {key}: wall {wall * 1e3:.3f} ms, kernels {device_us / 1e3:.3f} ms"
+            f" of device time, busy share {device_us / 1e6 / wall:.3f},"
+            f" {sum(e.count for e in events) / 2:.0f} kernel launches per step",
+            flush=True,
+        )
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
+            print(f"  {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x  {e.key[:110]}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -43,3 +43,4 @@ class Registry:
 models = Registry("model")
 predictors = Registry("predictor")
 correctors = Registry("corrector")
+trainables = Registry("trainable")

@@ -122,3 +122,68 @@ def jax_sampler_draws(key, p_steps, shape, use_path, y_shape=None):
             rng, ryc, rc, ryp, rp = jax.random.split(rng, 5)
             draws += [normal_y(ryc), normal(jax.random.fold_in(rc, 0)), normal_y(ryp), normal(rp)]
     return draws
+
+
+def train_toy_configs(warmup: int = 0, dropout: float = 0.0, batch: int = 2, grad_clip: float = 1.0):
+    """The JAX and port toy recipes for training: batch ``batch``, dropout
+    ``dropout``, ``warmup`` warmup steps, the recipe's Adam and clip."""
+    configs = []
+    for config in (jax_toy_config(fused_tail=False), torch_toy_config(fused_tail=False)):
+        config.model.dropout = dropout
+        config.training.batch_size = batch
+        config.optim.warmup = warmup
+        config.optim.grad_clip = grad_clip
+        configs.append(config)
+    return configs
+
+
+def jax_toy_params(config, seed: int = 1):
+    """The JAX toy module and numpy params redrawn by `randomize_params`,
+    from shapes alone (no compile)."""
+    from conditional_score_diffusion_tpu.models import init_model_shapes_only
+
+    try:
+        module, params = init_model_shapes_only(config, jax.random.key(0))
+    finally:
+        reset_jax_dispatch()
+    return module, randomize_params(jax.device_get(params), seed)
+
+
+def jax_loss_draws(rng, shapes, train: bool = True, eps: float = 1e-5):
+    """``t`` and the per-domain noise that the JAX multi-speed loss draws
+    from ``rng`` (`losses/continuous.py:58-86`: t; the dropout key in
+    train mode; one key per sorted domain), as numpy."""
+    rng_t, rng = jax.random.split(rng)
+    if train:
+        _, rng = jax.random.split(rng)
+    B = next(iter(shapes.values()))[0]
+    draws = {"t": np.asarray(jax.random.uniform(rng_t, (B,), minval=eps, maxval=1.0))}
+    for k in sorted(shapes):
+        rng_z, rng = jax.random.split(rng)
+        draws[k] = np.asarray(jax.random.normal(rng_z, shapes[k]))
+    return draws
+
+
+def jax_step_draws(key, step: int, shapes):
+    """The draws of the JAX train step ``step`` (`training/steps.py`:
+    ``fold_in(rng, state.step)``, no accumulation)."""
+    return jax_loss_draws(jax.random.fold_in(key, step), shapes)
+
+
+def to_torch(tree):
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in tree.items()}
+
+
+def hold_gradients(got, want, tol: float, noise_level: float = 1e-6):
+    """Each gradient tensor of ``got`` against ``want`` (dicts by name) at
+    ``tol`` of the tensor's largest magnitude; a tensor whose gradient is
+    below ``noise_level`` of the largest of all (zero in exact arithmetic:
+    a bias before a one-channel-per-group GroupNorm, an attention key bias)
+    is rounding noise on both sides and is held at ``noise_level`` of that
+    largest gradient instead."""
+    assert got.keys() == want.keys()
+    top = max(g.abs().max().item() for g in want.values())
+    for name, g in want.items():
+        err = (got[name] - g).abs().max().item()
+        tmax = g.abs().max().item()
+        assert err <= (tol * tmax if tmax >= noise_level * top else noise_level * top), (name, err, tmax, top)
