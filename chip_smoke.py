@@ -8,9 +8,10 @@ Phases, each printing its own line with its seconds:
 1. device: needs a CUDA device (exits non-zero without one); prints the card's
    name and power limit as nvidia-smi gives them, and the TF32 switches
    (both off: the port runs float32 as float32).
-2. build: builds the four kernel sources (csrc/gn_silu_conv3x3.cu,
-   csrc/resblock_fused.cu, csrc/fir_resample.cu, csrc/conv3x3.cu) with nvcc,
-   in parallel, each with its seconds and its ptxas lines.
+2. build: builds the five kernel sources (csrc/gn_silu_conv3x3.cu,
+   csrc/resblock_fused.cu, csrc/fir_resample.cu, csrc/conv3x3.cu,
+   csrc/fused_bias_act.cu) with nvcc, in parallel, each with its seconds and
+   its ptxas lines.
 3. kernel: each kernel against its plain PyTorch version at the shapes its
    path gives it, float32 and bfloat16 (2e-2 of the largest magnitude;
    float32 1e-4, the FIR kernels 1e-5): the fused tail at the flagship's
@@ -30,7 +31,14 @@ Phases, each printing its own line with its seconds:
    of the flagship train step (B=16, 160x160x6 to 5x5x288; counted on the
    meta device), timed beside its plain version, F.conv2d and the bound;
    its autograd input gradient against F.conv2d's at two shapes; kernel 5's
-   (H, W, B, C) entry at two shapes.
+   (H, W, B, C) entry at two shapes.  The fused tail at the texture64
+   harness's shapes (B=16: 16x16x128, 8x8x128, 4x4x192; counted on the meta
+   device), timed.  The fused bias + leaky ReLU (kernel 8) at (16, 64, 64,
+   64) and (8, 160, 160, 96) with a bias and the default slope and gain, and
+   at (3, 5, 7, 6) without a bias and with slope 0.1, gain 1.0 (float32
+   within 1e-6 of the largest magnitude, bfloat16 within two bfloat16 steps
+   of each element), timed beside its plain three-op chain and its byte
+   bound; no single PyTorch call computes it, so its library time is null.
 4. agreement: the same weights with the kernels on and off: the float32
    tail path and the flagship block path (fused_block and fused_tail) in
    float32 and in bfloat16 compute; the NCSN++ path with the FIR kernels
@@ -39,14 +47,16 @@ Phases, each printing its own line with its seconds:
    score on the sampler's own input at t = 0.5, a 3-step sample and the raw
    network output on the clean batch; float32 at 1e-4, bfloat16 as
    `agreement` says (2e-2).  After the samplers, the train step with kernel
-   4 on and off (`train_agreement`).
+   4 on and off (`train_agreement`), and the trained texture64 EMA's score
+   with the fused tail on and off (`texture64_agreement`, 1e-4).
 5. main (the flagship block path): texture160 test batch 0 (8 images, y =
    8x SR degradation), the full-width ddpm_paired with seeded N(0, 0.02)
    weights, bfloat16 compute through `get_score_fn(compute_dtype=...)` ->
    `get_conditional_score_fn` -> `get_pc_conditional_sampler` (as the JAX
-   bench composes it), fused_block and fused_tail on, 1000 steps.  Each
+   bench composes it), fused_block and fused_tail on, 200 of the recipe's
+   1000 steps (its time per evaluation does not depend on the count).  Each
    kernel's launch counter, set to 0 just before, must read exactly its
-   count per forward x 2 x 1000 just after.
+   count per forward x 2 x 200 just after.
 6. main (the float32 tail path): the same batch and weights, float32,
    fused_tail only, through `get_conditional_sampling_fn`, 200 steps; the
    tail's counter must read 17 x 2 x 200.
@@ -56,9 +66,9 @@ Phases, each printing its own line with its seconds:
    the full-width ncsnpp_KxSR (nf=64, ch_mult (1,1,2,2,4,4), 32.1 M
    parameters) with seeded N(0, 0.02) weights; the multi-speed VE SDE with
    sigma_y as the VS-CMDE schedule leaves it (sigma_y,max 138.6); float32
-   through `get_conditional_sampling_fn`, 1000 steps; the FIR counters must
-   read 15 x 2 x 1000 each.
-8. main (the trainer path, new): `Trainer(texture160_sr_cmde_conv3x3)
+   through `get_conditional_sampling_fn`, 200 steps; the FIR counters must
+   read 15 x 2 x 200 each.
+8. main (the trainer path): `Trainer(texture160_sr_cmde_conv3x3)
    .fit(max_steps=20)`: the texture160 train split, batch 16, float32,
    dropout 0.1, the DDPM init, every 3x3 stride-1 conv and its input
    gradient on kernel 4; train_loss finite, one eval_loss on the EMA (4
@@ -68,7 +78,19 @@ Phases, each printing its own line with its seconds:
    Then the same for 5 steps with the policy off (every counter 0).  Each
    prints ms per step and images/s over the sustained window, the peak
    memory, and one step split by CUDA events.
-9. result: a JSON line of the kernels, the nvidia-smi line, and last
+9. main (the --mode test harness, new): `run_test` with the recipe
+   `texture64_sr_cmde_test` on test batch 0 (16 images, y = 4x SR
+   degradation): the trained texture64 EMA (13,644,550 parameters, the
+   committed torch file), draws 2, 3, 4 at snr 0.15, 1000 steps, float32
+   with TF32 off, fused_tail on; the tail's counter must read (its calls per
+   forward, counted on the meta device) x 2 x 1000 x 3, every other 0.  Each
+   draw's metrics and seconds, the batch means and ms per score evaluation;
+   the means held against the JAX harness's on the same checkpoint and
+   batch (`HARNESS_JAX`).  Then `run_evaluation_pipeline` on the tree it
+   wrote, its metrics printed; each draw's PSNR from the 8-bit PNGs, with
+   the rounding's 1/12 level^2 taken out of each image's MSE, within 0.1 dB
+   of the harness's (the raw difference printed beside it).
+10. result: a JSON line of the kernels, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -78,6 +100,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import json
 import math
 import os
@@ -99,15 +122,18 @@ from conditional_score_diffusion_tpu_torch.configs import (  # noqa: E402
     texture160_sr_cmde_bf16_block_config,
     texture160_sr_cmde_config,
     texture160_sr_cmde_conv3x3_config,
+    texture64_sr_cmde_test_config,
 )
 from conditional_score_diffusion_tpu_torch.data.pkl_datasets import PKLDataModule, iter_test_batches  # noqa: E402
-from conditional_score_diffusion_tpu_torch.models import create_model, init_model_random  # noqa: E402
+from conditional_score_diffusion_tpu_torch.eval.harness import load_model, output_dir, run_test  # noqa: E402
+from conditional_score_diffusion_tpu_torch.eval.pipeline import load_images, numbered, run_evaluation_pipeline  # noqa: E402
+from conditional_score_diffusion_tpu_torch.models import create_model, init_model_random, layers  # noqa: E402
 from conditional_score_diffusion_tpu_torch.models.wrappers import (  # noqa: E402
     get_conditional_score_fn,
     get_model_fn,
     get_score_fn,
 )
-from conditional_score_diffusion_tpu_torch.ops import conv3x3, fir, fused_block, fused_tail  # noqa: E402
+from conditional_score_diffusion_tpu_torch.ops import conv3x3, fir, fused_act, fused_block, fused_tail  # noqa: E402
 from conditional_score_diffusion_tpu_torch.ops.fused_tail import conv3x3_nhwc  # noqa: E402
 from conditional_score_diffusion_tpu_torch.ops.upfirdn import setup_kernel  # noqa: E402
 from conditional_score_diffusion_tpu_torch.profile_sampler import plain_versions, sampler_sde  # noqa: E402
@@ -115,7 +141,7 @@ from conditional_score_diffusion_tpu_torch.sampling import (  # noqa: E402
     get_conditional_sampling_fn,
     get_pc_conditional_sampler,
 )
-from conditional_score_diffusion_tpu_torch.sde import batch_mul  # noqa: E402
+from conditional_score_diffusion_tpu_torch.sde import batch_mul, build_sde  # noqa: E402
 from conditional_score_diffusion_tpu_torch.training.checkpoint import CheckpointManager  # noqa: E402
 from conditional_score_diffusion_tpu_torch.training.state import create_train_state  # noqa: E402
 from conditional_score_diffusion_tpu_torch.training.steps import make_train_step  # noqa: E402
@@ -174,8 +200,8 @@ FIR_SHAPES = [
 FIR_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 ASYMMETRIC_FIR = (1.0, 2.0, 5.0, 0.5)  # a non-symmetric 4-tap kernel, checked at one shape each
 PER_FORWARD_NCSNPP_PATH = {"fir_upsample2": 15, "fir_downsample2": 15}
-STEPS = 1000  # the new path: the flagship's full step count
-TAIL_PATH_STEPS = 200  # the float32 tail path, cut from 1000 to keep the run short
+STEPS = 200  # the bfloat16 block path and the NCSN++ path, cut from their 1000 to keep the run short
+TAIL_PATH_STEPS = 200  # the float32 tail path, cut from 1000 likewise
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Kernels on against off, bfloat16 compute (see `agreement`).
 BF16_AGREE_TOL = 2e-2
@@ -207,6 +233,38 @@ SMALL_GRAD, NOISE_LEVEL = 1e-2, 1e-6
 HMAJOR_SHAPES = [(20, 192, 192), (5, 288, 288)]  # (H, Cin, Cout) of the (H, W, B, C) entry
 ROTATION_SHAPES = [(40, 96, 192), (10, 288, 192)]  # the autograd dx against F.conv2d's
 
+# The fused bias + leaky ReLU (kernel 8), which no path calls: (shape, with
+# bias, negative_slope, scale); float32 within 1e-6 of the largest
+# magnitude, bfloat16 within two bfloat16 steps of each element.
+FUSED_ACT_SHAPES = [
+    ((16, 64, 64, 64), True, 0.2, 2**0.5),
+    ((8, 160, 160, 96), True, 0.2, 2**0.5),
+    ((3, 5, 7, 6), False, 0.2, 2**0.5),
+    ((3, 5, 7, 6), True, 0.1, 1.0),
+]
+FUSED_ACT_F32_TOL, FUSED_ACT_BF16_STEPS = 1e-6, 2
+
+# The --mode test harness on the trained texture64 checkpoint: test batch 0
+# of 16, draws 2, 3, 4, 1000 steps, float32, the fused tail on.  The JAX
+# harness's batch-0 means on the same checkpoint and batch
+# (artifacts/texture64_run/.../test_metrics/0_4.pkl, copied here because
+# artifacts/ is not sent to the card), each with the band the port's means
+# must fall in: PSNR and consistency in dB, SSIM absolute, diversity
+# relative.
+HARNESS_BATCH, HARNESS_STEPS, HARNESS_DRAWS = 16, 1000, [2, 3, 4]
+HARNESS_JAX = {"psnr": 35.634047190348305, "ssim": 0.874427596728007, "consistency": 53.10198720296224,
+               "diversity": 4.192732334136963}
+HARNESS_BAND = {"psnr": 0.5, "ssim": 0.015, "consistency": 1.5, "diversity": 0.2 * 4.192732334136963}
+# The pipeline's PSNR from the 8-bit PNG tree against the harness's from the
+# float samples, in dB.  Rounding to 8 bits adds 1/12 level^2 (a uniform
+# error's variance) to each image's MSE, which lowers a 48 dB image's PSNR by
+# ~0.2 dB and batch 0's mean by ~0.12 (NVIDIA H100 80GB HBM3, 700.00 W); so
+# the check removes that term from each image's MSE read back from the PNGs
+# and holds the result at 0.1 dB, and prints the raw difference beside it.
+PIPELINE_PSNR_TOL = 0.1
+QUANTIZATION_MSE = 1.0 / 12.0  # level^2
+TEXTURE64_AGREE_TOL = 1e-4
+
 WRAPPERS = {
     "gn_silu_conv3x3": fused_tail.gn_silu_conv3x3,
     "resblock_fused": fused_block.resblock_fused,
@@ -215,6 +273,7 @@ WRAPPERS = {
     "fir_downsample2": fir.fir_downsample2,
     "conv3x3": conv3x3.conv3x3,
     "conv3x3_hmajor": conv3x3.conv3x3_hmajor,
+    "fused_leaky_relu": fused_act.fused_leaky_relu_kernel,
 }
 
 
@@ -272,15 +331,21 @@ def check_close(label, got, want, dtype, tol=REL_TOL):
 # ---- the fused tail -------------------------------------------------------
 
 
-def tail_inputs(h, c, dtype, seed):
+def tail_inputs(h, c, dtype, seed, batch=BATCH):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    x = (torch.randn(BATCH, h, h, c, generator=g, device="cuda") * 1.5 + 0.3).to(dtype)
+    x = (torch.randn(batch, h, h, c, generator=g, device="cuda") * 1.5 + 0.3).to(dtype)
     w = (torch.randn(c, c, 3, 3, generator=g, device="cuda") / (9 * c) ** 0.5).to(dtype)
     gamma = 1.0 + 0.1 * torch.randn(c, generator=g, device="cuda")
     beta = 0.1 * torch.randn(c, generator=g, device="cuda")
     bias = 0.1 * torch.randn(c, generator=g, device="cuda")
-    temb = torch.randn(BATCH, c, generator=g, device="cuda")
+    temb = torch.randn(batch, c, generator=g, device="cuda")
     return x, w, gamma, beta, bias, temb
+
+
+def tail_work(h, c, dtype, batch=BATCH):
+    """Operations and bytes of one tail call: x and w read once, out
+    written once, the float32 vectors read once."""
+    return 2 * 9 * batch * h * h * c * c, itemsize(dtype) * (2 * batch * h * h * c + 9 * c * c) + 4 * 3 * c
 
 
 def check_tail():
@@ -296,8 +361,7 @@ def check_tail():
                 err = check_close(f"tail {h}x{h}x{c} {dname(dtype)} temb={with_temb}", got, want, dtype)
                 if with_temb:
                     continue
-                flops = 2 * 9 * BATCH * h * h * c * c
-                nbytes = itemsize(dtype) * (2 * BATCH * h * h * c + 9 * c * c) + 4 * 3 * c
+                flops, nbytes = tail_work(h, c, dtype)
                 bound_ms, bound_by = bound(flops, nbytes, dtype)
                 row = dict(
                     shape=f"{BATCH}x{h}x{h}x{c}", dtype=dname(dtype),
@@ -926,6 +990,225 @@ def per_forward_row(name, route_source, replaces, launches, rows, dtype, calls_k
     )
 
 
+# ---- the fused bias + leaky ReLU (kernel 8) --------------------------------
+
+
+def check_fused_act():
+    """Kernel 8 against its plain version at `FUSED_ACT_SHAPES`, float32 and
+    bfloat16, each timed (CUDA events) beside the plain three-op chain and
+    its byte bound; returns per-shape rows."""
+    rows = []
+    for shape, with_bias, slope, scale in FUSED_ACT_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device="cuda").manual_seed(sum(shape))
+            x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+            b = torch.randn(shape[-1], generator=g, device="cuda").to(dtype) if with_bias else None
+            kernel = lambda: fused_act.fused_leaky_relu(x, b, slope, scale)  # noqa: E731
+            plain = lambda: fused_act.fused_leaky_relu_plain(x, b, slope, scale)  # noqa: E731
+            got, want = kernel(), plain()
+            label = f"fused_leaky_relu {shape} bias={with_bias} slope={slope} scale={scale:.4f} {dname(dtype)}"
+            if dtype == torch.float32:
+                err = check_close(label, got, want, dtype, {dtype: FUSED_ACT_F32_TOL})
+            else:
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs()
+                mag = torch.maximum(got.float().abs(), want.float().abs()).clamp_min(1e-30)
+                steps = (diff / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max().item()
+                err = diff.max().item()
+                ok = got.dtype == dtype and got.shape == want.shape and steps <= FUSED_ACT_BF16_STEPS
+                print(f"  {label}: max_abs_err {err:.3e}, {steps:.2f} bfloat16 steps (tol {FUSED_ACT_BF16_STEPS})"
+                      f" {'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    raise RuntimeError(f"{label}: kernel disagrees with its plain version")
+            n = x.numel()
+            bound_ms, bound_by = bound(3 * n, itemsize(dtype) * (2 * n + (shape[-1] if with_bias else 0)), dtype)
+            row = dict(shape=list(shape), bias=with_bias, negative_slope=slope, scale=scale, dtype=dname(dtype),
+                       max_abs_err=err, mbytes=itemsize(dtype) * 2 * n / 1e6, bound_ms=bound_ms, bound_by=bound_by,
+                       ms=time_ms(kernel), plain_ms=time_ms(plain), library_ms=None)
+            print(f"    time: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms"
+                  f" ({bound_by}), {2 * n * itemsize(dtype) / row['ms'] / 1e6:.1f} GB/s", flush=True)
+            rows.append(row)
+    return rows
+
+
+# ---- the --mode test harness on the trained texture64 checkpoint -------------
+
+
+def harness_config(base_log_dir):
+    """The recipe `texture64_sr_cmde_test` on test batch 0, trees under
+    ``base_log_dir``."""
+    config = texture64_sr_cmde_test_config()
+    config.data.base_dir = os.path.join(REPO, "datasets")
+    config.eval.base_log_dir = base_log_dir
+    config.eval.first_test_batch, config.eval.last_test_batch = 0, 1
+    config.eval.draws = list(HARNESS_DRAWS)
+    config.eval.p_steps = HARNESS_STEPS
+    return config
+
+
+def tail_call_shapes(config, batch):
+    """Counter of the fused tail's calls in one eval forward of ``config``'s
+    model on the meta device, by (H, Cout)."""
+    calls = collections.Counter()
+    real = layers.gn_silu_conv3x3
+
+    def record(x, w, *args, **kwargs):
+        calls[(x.shape[1], w.shape[0])] += 1
+        return torch.empty(*x.shape[:-1], w.shape[0], device=x.device, dtype=x.dtype)
+
+    layers.gn_silu_conv3x3 = record
+    try:
+        model = create_model(config, "meta")
+        s = config.data.image_size
+        x = torch.empty(batch, s, s, 3, device="meta")
+        with torch.no_grad():
+            model({"x": x, "y": x}, torch.empty(batch, device="meta"))
+    finally:
+        layers.gn_silu_conv3x3 = real
+    return calls
+
+
+def check_harness_tails(shapes):
+    """The fused tail against plain at the harness's sites (B=16, float32
+    and bfloat16, no temb, as the resblock calls it), float32 timed;
+    returns per-shape rows."""
+    rows = []
+    for (h, c), calls in sorted(shapes.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, gamma, beta, bias, _ = tail_inputs(h, c, dtype, seed=h * c + 2, batch=HARNESS_BATCH)
+            err = check_close(
+                f"harness tail {HARNESS_BATCH}x{h}x{h}x{c} {dname(dtype)}",
+                fused_tail.gn_silu_conv3x3(x, w, gamma, beta, GROUPS, bias=bias),
+                fused_tail.gn_silu_conv3x3_plain(x, w, gamma, beta, GROUPS, bias=bias), dtype,
+            )
+            if dtype != torch.float32:
+                continue
+            flops, nbytes = tail_work(h, c, dtype, HARNESS_BATCH)
+            bound_ms, bound_by = bound(flops, nbytes, dtype)
+            row = dict(
+                shape=f"{HARNESS_BATCH}x{h}x{h}x{c}", dtype=dname(dtype), calls_per_forward_harness=calls,
+                max_abs_err=err, gflop=flops / 1e9, bound_ms=bound_ms, bound_by=bound_by,
+                ms=time_ms(lambda: fused_tail.gn_silu_conv3x3(x, w, gamma, beta, GROUPS, bias=bias)),
+                plain_ms=time_ms(lambda: fused_tail.gn_silu_conv3x3_plain(x, w, gamma, beta, GROUPS, bias=bias)),
+                library_ms=time_ms(lambda: conv3x3_nhwc(x, w, bias)),
+            )
+            print(f"    time: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, cuDNN conv only"
+                  f" {row['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+            rows.append(row)
+    return rows
+
+
+def texture64_agreement(config):
+    """The trained EMA's conditional score with the fused tail on and off on
+    test batch 0 at t = 0.5 (x_t and y_t drawn from the SDE's marginals),
+    float32, at `TEXTURE64_AGREE_TOL` of its largest magnitude."""
+    t = time.perf_counter()
+    model, step = load_model(config, "cuda")
+    off_config = copy.deepcopy(config)
+    off_config.model.fused_tail = False
+    model_off, _ = load_model(off_config, "cuda")
+    sde, _ = build_sde(config)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(iter_test_batches(config)).items()}
+    vec_t = torch.full((HARNESS_BATCH,), 0.5, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x_t, y_t = (
+        batch[k] + batch_mul(sde[k].marginal_prob(batch[k], vec_t)[1],
+                             torch.randn(batch[k].shape, generator=g, device="cuda"))
+        for k in ("x", "y")
+    )
+    with torch.no_grad():
+        on, off = (score_fn(m, sde)(x_t, y_t, vec_t) for m in (model, model_off))
+    err = rel_err(on, off)
+    ok = err <= TEXTURE64_AGREE_TOL and bool(torch.isfinite(on).all())
+    phase("agreement", t, f"texture64 trained EMA (step {step}): score with the fused tail on vs off, rel err"
+                          f" {err:.3e} (tol {TEXTURE64_AGREE_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("texture64: the fused tail disagrees with the unfused path on the trained weights")
+    return dict(path="texture64 trained EMA, fused tail", tol=TEXTURE64_AGREE_TOL, score_rel_err=err)
+
+
+def psnr_without_quantization(config, draw):
+    """Mean PSNR of one draw's PNGs against the ground-truth PNGs, each
+    image's MSE less the 8-bit rounding's `QUANTIZATION_MSE`."""
+    images = os.path.join(output_dir(config), "images")
+    gt = numbered(os.path.join(images, "x_gt"))
+    drawn = numbered(os.path.join(images, "samples", "snr_0.150", f"draw_{draw}"))
+    ids = sorted(gt)
+    x = torch.from_numpy(load_images([gt[i] for i in ids])).double() * 255.0
+    s = torch.from_numpy(load_images([drawn[i] for i in ids])).double() * 255.0
+    mse = ((s - x) ** 2).mean(dim=(1, 2, 3)) - QUANTIZATION_MSE
+    return float((20 * torch.log10(255.0 / torch.sqrt(mse))).mean())
+
+
+def run_harness(per_forward_tail):
+    """`run_test` on test batch 0 with every kernel counter at 0 just before
+    and read just after; the batch means against `HARNESS_JAX`, then the
+    offline pipeline on the written tree."""
+    with tempfile.TemporaryDirectory() as base_log_dir:
+        config = harness_config(base_log_dir)
+        records = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in WRAPPERS.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        results = run_test(config, device="cuda", draw_records=records)
+        wall = time.perf_counter() - t
+        launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+        expected = {name: 0 for name in WRAPPERS}
+        expected["gn_silu_conv3x3"] = per_forward_tail * 2 * HARNESS_STEPS * len(HARNESS_DRAWS)
+        means = {m: v[0] for m, v in results[0.15].items()}
+        seconds = [r["seconds"] for r in records]
+        result = dict(
+            path="float32 --mode test harness, texture64 trained EMA", steps=HARNESS_STEPS, batch=HARNESS_BATCH,
+            wall_s=wall, seconds_per_draw=seconds,
+            ms_per_score_eval=[sec / (2 * HARNESS_STEPS) * 1e3 for sec in seconds],
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches, expected_launches=expected,
+            draws=records, means=means, jax_means=HARNESS_JAX,
+        )
+        for r in records:
+            print(f"  draw {r['draw']}: psnr {r['psnr']:.4f} ssim {r['ssim']:.5f} consistency {r['consistency']:.4f}"
+                  f" in {r['seconds']:.3f} s ({r['seconds'] / (2 * HARNESS_STEPS) * 1e3:.3f} ms per score evaluation)",
+                  flush=True)
+        off = {m: abs(means[m] - HARNESS_JAX[m]) for m in HARNESS_JAX if m in means}
+        ok = len(off) == len(HARNESS_JAX) and all(v <= HARNESS_BAND[m] for m, v in off.items())
+        ok = ok and launches == expected
+        phase(
+            "main", t,
+            f"{result['path']}: batch 0 means "
+            + ", ".join(f"{m} {means[m]:.5f} (JAX {HARNESS_JAX[m]:.5f}, band {HARNESS_BAND[m]:.4g})" for m in off)
+            + f"; {wall:.3f} s wall, peak {result['peak_gib']:.3f} GiB; launches {launches} (expected {expected})"
+            f" {'ok' if ok else 'FAIL'}",
+        )
+        if launches != expected:
+            raise RuntimeError(f"harness: launches {launches}, expected {expected}")
+        if not ok:
+            raise RuntimeError(f"harness: batch-0 means {means} outside the bands around the JAX harness's")
+
+        t = time.perf_counter()
+        pipe = run_evaluation_pipeline("super-resolution", output_dir(config), 0.15, scale=config.data.scale)
+        gaps = {f"draw_{r['draw']}": pipe["per_draw"][f"draw_{r['draw']}"]["psnr"] - r["psnr"] for r in records}
+        unquantized = {f"draw_{r['draw']}": psnr_without_quantization(config, r["draw"]) - r["psnr"] for r in records}
+        ok = pipe["n_images"] == HARNESS_BATCH and all(abs(v) <= PIPELINE_PSNR_TOL for v in unquantized.values())
+        phase(
+            "main", t,
+            "evaluation pipeline on the written tree: "
+            + ", ".join(f"{k} psnr {v['psnr']:.4f} ssim {v['ssim']:.5f} consistency {v['consistency']:.4f}"
+                        for k, v in sorted(pipe["per_draw"].items()))
+            + f", diversity {pipe['diversity']:.6f}; PSNR from the PNGs minus the harness's: "
+            + ", ".join(f"{k} {v:+.4f} dB" for k, v in sorted(gaps.items()))
+            + f"; the same with the 8-bit rounding's {QUANTIZATION_MSE:.4f} level^2 taken out of each image's MSE: "
+            + ", ".join(f"{k} {v:+.4f} dB" for k, v in sorted(unquantized.items()))
+            + f" (tol {PIPELINE_PSNR_TOL} dB) {'ok' if ok else 'FAIL'}",
+        )
+        if not ok:
+            raise RuntimeError(f"pipeline: per-draw PSNR {unquantized} off the harness's by more than"
+                               f" {PIPELINE_PSNR_TOL} dB with the rounding's MSE taken out")
+        result["pipeline"] = dict(per_draw=pipe["per_draw"], diversity=pipe["diversity"], skipped=pipe["skipped"],
+                                  psnr_minus_harness=gaps, psnr_without_quantization_minus_harness=unquantized)
+    return result
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -952,6 +1235,7 @@ def main() -> int:
         "resblock_fused": fused_block.load_library,
         "fir_resample": fir.load_library,
         "conv3x3": conv3x3.load_library,
+        "fused_bias_act": fused_act.load_library,
     }
     with ThreadPoolExecutor(len(loaders)) as pool:
         built = dict(zip(loaders, pool.map(lambda load: load(), loaders.values())))
@@ -973,7 +1257,11 @@ def main() -> int:
     if per_step != CONV_PER_TRAIN_STEP:
         raise RuntimeError(f"kernel 4 calls per train step {per_step}, expected {CONV_PER_TRAIN_STEP}")
     conv_rows, hmajor_rows = check_conv(shapes)
-    phase("kernel", t, "every kernel agrees with its plain version at every shape")
+    harness_tails = tail_call_shapes(harness_config(""), HARNESS_BATCH)
+    harness_tail_rows = check_harness_tails(harness_tails)
+    act_rows = check_fused_act()
+    phase("kernel", t, "every kernel agrees with its plain version at every shape; the harness's tail calls per"
+                       f" forward {dict(sorted(harness_tails.items()))}")
 
     # ---- set-up: the batch and one set of weights ---------------------------
     t = time.perf_counter()
@@ -1065,6 +1353,10 @@ def main() -> int:
         "float32 trainer, policy off", off, TRAIN_OFF_STEPS, {name: 0 for name in WRAPPERS}, evals=0, restore=False,
     )
 
+    # ---- the --mode test harness on the trained texture64 checkpoint -------
+    agree_texture64 = texture64_agreement(harness_config(""))
+    main_harness = run_harness(sum(harness_tails.values()))
+
     bf16 = torch.bfloat16
     tail_line = per_forward_row(
         "gn_silu_conv3x3", "conditional_score_diffusion_tpu_torch/csrc/gn_silu_conv3x3.cu",
@@ -1076,6 +1368,11 @@ def main() -> int:
         "gn_silu_conv3x3", tail_line["source"], tail_line["replaces"],
         main_tail["launches"]["gn_silu_conv3x3"], tail_rows, torch.float32, "calls_per_forward_tail_path",
         "one forward of the float32 tail path: the 17 gated tails, B=8",
+    )
+    tail_line["float32_texture64_harness"] = per_forward_row(
+        "gn_silu_conv3x3", tail_line["source"], tail_line["replaces"],
+        main_harness["launches"]["gn_silu_conv3x3"], harness_tail_rows, torch.float32, "calls_per_forward_harness",
+        f"one forward of the float32 texture64 harness: its {sum(harness_tails.values())} tails, B={HARNESS_BATCH}",
     )
     kernels = [tail_line]
     for name, line in (("resblock_fused", 269), ("resblock_fused_split", 462)):
@@ -1108,7 +1405,8 @@ def main() -> int:
         kernels.append(k)
     for k in kernels:
         k["per_shape"] = [
-            r for r in tail_rows + block_rows + fir_rows if r.get("kernel", "gn_silu_conv3x3") == k["name"]
+            r for r in tail_rows + harness_tail_rows + block_rows + fir_rows
+            if r.get("kernel", "gn_silu_conv3x3") == k["name"]
         ]
     f32 = conv_sums(conv_rows, torch.float32)
     conv_line = dict(
@@ -1137,9 +1435,24 @@ def main() -> int:
              " every call comes through the NHWC entry (no path calls the (H, W, B, C) entry, in JAX neither)",
         per_shape=hmajor_rows,
     )
-    kernels += [conv_line, hmajor_line]
-    paths = [main_new, main_tail, main_ncsnpp, main_train, main_train_off]
-    print(json.dumps({"kernels": kernels, "paths": paths, "agreement": agree + [agree_train]}), flush=True)
+    big = [r for r in act_rows if r["shape"] == [8, 160, 160, 96]]
+    act_f32 = next(r for r in big if r["dtype"] == "float32")
+    act_line = dict(
+        name="fused_leaky_relu", route="cuda", source="conditional_score_diffusion_tpu_torch/csrc/fused_bias_act.cu",
+        replaces="conditional_score_diffusion_tpu/ops/pallas_kernels.py:188",
+        launches=main_harness["launches"]["fused_leaky_relu"],
+        max_abs_err=max(r["max_abs_err"] for r in act_rows if r["dtype"] == "float32"),
+        **{k: act_f32[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        unit="one float32 call at (8, 160, 160, 96) with a bias; no path calls this op (in JAX neither), so its"
+             " launches on the main path are 0; no single PyTorch call computes bias + leaky ReLU + gain, so"
+             " library_ms is null",
+        bfloat16={k: next(r for r in big if r["dtype"] == "bfloat16")[k] for k in ("ms", "plain_ms", "bound_ms")},
+        per_shape=act_rows,
+    )
+    kernels += [conv_line, hmajor_line, act_line]
+    paths = [main_new, main_tail, main_ncsnpp, main_train, main_train_off, main_harness]
+    agree += [agree_train, agree_texture64]
+    print(json.dumps({"kernels": kernels, "paths": paths, "agreement": agree}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -1,7 +1,9 @@
-"""The CelebA-HQ-160 8x super-resolution CMDE recipe (``ours_NDV``), copied
-from the JAX package's `configs/celeba_sr.py:celeba_sr_160_config`.
+"""The CelebA-HQ super-resolution CMDE recipes (``ours_NDV``), copied from
+the JAX package's `configs/celeba_sr.py`: the 160px 8x flagship
+(`celeba_sr_160_config`), the 128px family (`celeba_sr_128_config`) and the
+64px 4x sigma_max_y sweep (`celeba_sr_interpolation_config`).
 
-Only the CMDE estimator is ported so far; the JAX builder's other
+Only the CMDE estimator is ported so far; the JAX builders' other
 approaches (``ours_DV``, ``ours_slowDV``, ``song``, ``sr3``) are not.
 """
 
@@ -93,4 +95,53 @@ def celeba_sr_160_config(approach: str = "ours_NDV") -> Config:
     config.optim.lr = 2e-4
     config.optim.warmup = 2500
     config.optim.grad_clip = 1.0
+    return config
+
+
+def celeba_sr_128_config(approach: str = "ours_NDV", *, smaxy: float | None = None) -> Config:
+    """The 128px General_PKLDataset SR family (JAX
+    `configs/celeba_sr.py:celeba_sr_128_config`), CMDE only."""
+    config = celeba_sr_160_config(approach)
+    config.training.batch_size = 25
+    config.training.n_iters = 250000
+    config.eval.batch_size = 25
+
+    data = config.data
+    data.datamodule = "General_PKLDataset"
+    size = 128
+    data.target_resolution = size
+    data.image_size = size
+    data.effective_image_size = size
+    data.shape_x = [3, size, size]
+    data.shape_y = [3, size, size]
+
+    model = config.model
+    model.sigma_max_x = float(math.sqrt(math.prod(data.shape_x)))
+    model.attn_resolutions = (16, 8, 4)
+    model.sigma_max_y = 0.1 if smaxy is None else smaxy
+    return config
+
+
+def celeba_sr_interpolation_config(approach: str = "ours_NDV", *, smaxy_log10: float = -1.0) -> Config:
+    """The 64px scale-4 sigma_max_y interpolation sweep (JAX
+    `configs/celeba_sr.py:celeba_sr_interpolation_config`; sigma_max_y =
+    10^smaxy_log10), CMDE only."""
+    config = celeba_sr_128_config(approach)
+    config.training.batch_size = 80
+    config.training.n_iters = 500000
+    config.eval.batch_size = 64
+
+    data = config.data
+    data.scale = 4
+    size = 64
+    data.target_resolution = size
+    data.image_size = size
+    data.effective_image_size = size
+    data.shape_x = [3, size, size]
+    data.shape_y = [3, size, size]
+
+    model = config.model
+    model.sigma_max_x = float(math.sqrt(math.prod(data.shape_x)))
+    model.ch_mult = (1, 1, 2, 2, 3)
+    model.sigma_max_y = float(10.0**smaxy_log10)
     return config

@@ -1,7 +1,10 @@
-"""Super-resolution degradation on host numpy batches, copied from the JAX
-package's `data/degradations.py:bicubic_resize_np, sr_degrade`."""
+"""Degradations on host numpy batches, copied from the JAX package's
+`data/degradations.py`: `bicubic_resize_np`, `sr_degrade` and
+`random_square_mask` (the inpainting mask the offline pipeline re-rolls)."""
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -39,3 +42,22 @@ def bicubic_lq_images(images, scale: int):
         ).astype(np.uint8)
         for im in images
     ]
+
+
+def random_square_mask(
+    shape: Tuple[int, int, int, int],
+    mask_coverage: float,
+    rng: np.random.Generator,
+    seeds: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """[B,H,W,1] mask, 1 inside the square to inpaint; ``seeds`` (one per
+    item) re-rolls each item's square from its own generator."""
+    B, H, W, _ = shape
+    mask_size = int(np.sqrt(mask_coverage * H * W))
+    mask = np.zeros((B, H, W, 1), dtype=np.float32)
+    for i in range(B):
+        r = np.random.default_rng(int(seeds[i])) if seeds is not None else rng
+        sx = r.integers(0, H - mask_size + 1) if H > mask_size else 0
+        sy = r.integers(0, W - mask_size + 1) if W > mask_size else 0
+        mask[i, sx : sx + mask_size, sy : sy + mask_size, 0] = 1.0
+    return mask

@@ -13,7 +13,7 @@ returns the scalar loss of one batch:
   enters the network clean.
 
 The unconditional branch is not ported: the port has no unconditional
-score yet (ROADMAP.md section 1, item 3).
+score yet (ROADMAP.md section 1, item 2).
 
 Randomness: ``t`` is uniform in [eps, T) and the noise standard normal, both
 drawn from ``generator`` (a `torch.Generator` on the batch's device) in the
@@ -63,7 +63,7 @@ def get_general_sde_loss_fn(
     """The continuous DSM loss of ``model`` (see the module docstring)."""
     if not conditional:
         raise NotImplementedError(
-            "the unconditional continuous loss needs the unconditional score (ROADMAP.md section 1, item 3)"
+            "the unconditional continuous loss needs the unconditional score (ROADMAP.md section 1, item 2)"
         )
 
     def score_fn(sde, params):

@@ -1,6 +1,6 @@
 """Select the loss of a recipe (JAX `losses/factory.py`): the continuous
 branch.  The discrete SMLD/DDPM/inverse-problem losses are not ported
-(ROADMAP.md section 1, item 10)."""
+(ROADMAP.md section 1, item 9)."""
 
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ def build_loss_fn(config, model, sde_template, train: bool) -> Callable:
     of the recipe.  ``sde_template`` is kept for the JAX signature: the
     discrete branches would dispatch on its type."""
     if not config.training.continuous:
-        raise NotImplementedError("the discrete losses are not ported (ROADMAP.md section 1, item 10)")
+        raise NotImplementedError("the discrete losses are not ported (ROADMAP.md section 1, item 9)")
     return get_general_sde_loss_fn(
         model,
         conditional="conditioning_approach" in config.training,

@@ -3,12 +3,19 @@
     python -m conditional_score_diffusion_tpu_torch.main --mode train \\
         --config texture160_sr_cmde_conv3x3 [--log_path ./logs/] \\
         [--checkpoint_path DIR] [--data_path DIR] [--device cuda]
+    python -m conditional_score_diffusion_tpu_torch.main --mode test \\
+        --config texture64_sr_cmde_test [--checkpoint_path FILE_OR_DIR]
+    python -m conditional_score_diffusion_tpu_torch.main \\
+        --mode evaluation_pipeline --config texture64_sr_cmde_test
 
 ``--config`` is a recipe of `configs` by name (``texture160_sr_cmde_conv3x3``
 for `configs.texture160_sr_cmde_conv3x3_config`) or the path of a Python
-file whose ``get_config()`` returns a `configs.Config`.  ``--device`` (not a
-JAX flag) is ``cuda`` unless the caller asks for the CPU.  Of the five JAX
-modes only ``train`` is ported.
+file whose ``get_config()`` returns a `configs.Config`; for
+``evaluation_pipeline`` it may also be a master config (a `Config` of leaf
+recipes, JAX `run_lib.py:evaluation_pipeline`).  ``--device`` (not a JAX
+flag) is ``cuda`` unless the caller asks for the CPU.  ``train``, ``test``
+and ``evaluation_pipeline`` are ported; the other two modes raise, naming
+their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -21,10 +28,8 @@ from . import configs
 
 MODES = ["train", "test", "multi_scale_test", "compute_dataset_statistics", "evaluation_pipeline"]
 NOT_PORTED = {
-    "test": "the --mode test harness (ROADMAP.md section 1, item 2)",
-    "multi_scale_test": "the Haar multi-scale chain (ROADMAP.md section 1, item 7)",
-    "compute_dataset_statistics": "data/statistics.py (ROADMAP.md section 1, item 12)",
-    "evaluation_pipeline": "eval/pipeline.py (ROADMAP.md section 1, item 2)",
+    "multi_scale_test": "the Haar multi-scale chain (ROADMAP.md section 1, item 6)",
+    "compute_dataset_statistics": "data/statistics.py (ROADMAP.md section 1, item 11)",
 }
 
 
@@ -56,11 +61,47 @@ def main(argv=None) -> None:
     config = load_config(args.config)
     if args.data_path is not None and "base_dir" in config.data:
         config.data.base_dir = args.data_path
-    if args.mode != "train":
+    if args.mode in NOT_PORTED:
         raise NotImplementedError(f"--mode {args.mode} is not ported: it needs {NOT_PORTED[args.mode]}")
-    from .training.trainer import train
+    if args.mode == "train":
+        from .training.trainer import train
 
-    train(config, args.log_path, args.checkpoint_path, device=args.device)
+        train(config, args.log_path, args.checkpoint_path, device=args.device)
+    elif args.mode == "test":
+        from .eval.harness import run_test
+
+        run_test(config, args.log_path, args.checkpoint_path, device=args.device)
+    else:
+        evaluation_pipeline(config, device=args.device)
+
+
+def _evaluate_one_config(config, device):
+    """The pipeline at each of the recipe's snrs over its trees (JAX
+    `run_lib.py:_evaluate_one_config`)."""
+    from .eval.harness import output_dir
+    from .eval.pipeline import run_evaluation_pipeline
+
+    task = config.data.task
+    mask_kwargs = {}
+    if task == "inpainting" and config.eval.get("use_seed", False):
+        mask_kwargs = dict(
+            mask_coverage=config.data.get("mask_coverage", 0.25),
+            mask_seed_offset=config.eval.first_test_batch * config.eval.batch_size,
+        )
+    return {
+        snr: run_evaluation_pipeline(
+            task, output_dir(config), snr, scale=config.data.get("scale", 8), device=device, **mask_kwargs
+        )
+        for snr in config.eval.snr
+    }
+
+
+def evaluation_pipeline(master_config, device="cuda"):
+    """The pipeline over a leaf recipe, or over each sub-recipe of a master
+    config (JAX `run_lib.py:evaluation_pipeline`)."""
+    if "training" in master_config:
+        return _evaluate_one_config(master_config, device)
+    return {name: _evaluate_one_config(sub, device) for name, sub in vars(master_config).items()}
 
 
 if __name__ == "__main__":

@@ -43,7 +43,7 @@ from .nvcc import KernelLibrary
 from .upfirdn import downsample_2d_plain, upsample_2d_plain
 
 FIR_KERNEL = (1.0, 3.0, 3.0, 1.0)  # every recipe's fir_kernel
-NO_BACKWARD = "the FIR gradient comes with NCSN++ training (ROADMAP.md section 1, item 8)"
+NO_BACKWARD = "the FIR gradient comes with NCSN++ training (ROADMAP.md section 1, item 7)"
 
 
 def norm_taps(k: Sequence[float], gain: float) -> np.ndarray:

@@ -1,5 +1,5 @@
-"""MATLAB-compatible bicubic resampling matrix, copied from the JAX
-package's `ops/resize.py:resize_matrix` (numpy only).
+"""MATLAB-compatible bicubic resize, copied from the JAX package's
+`ops/resize.py`: `resize_matrix` (numpy) and `imresize` (torch).
 
 For a fixed (in_size, out_size) pair the resize is a linear map; it is
 materialized as a dense [out, in] matrix that matches MATLAB's
@@ -9,9 +9,12 @@ kernel on downscale, symmetric edge padding).
 
 from __future__ import annotations
 
+import contextlib
 from functools import lru_cache
+from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def _cubic(x: np.ndarray) -> np.ndarray:
@@ -50,3 +53,45 @@ def resize_matrix(in_size: int, out_size: int, antialias: bool = True) -> np.nda
     for r in range(out_size):
         np.add.at(M[r], idx[r], weights[r])
     return M.astype(np.float32)
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Float32 matmuls and cuDNN convolutions in full float32 (TF32 off)
+    inside the block, the switches restored after it: the metrics and the
+    resize feed PSNR and SSIM, which TF32's ~3 digits would move."""
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
+
+
+def imresize(
+    img: torch.Tensor,
+    scale: Optional[float] = None,
+    out_shape: Optional[Tuple[int, int]] = None,
+    antialias: bool = True,
+) -> torch.Tensor:
+    """MATLAB-equivalent bicubic resize of NHWC (or HWC) images (JAX
+    `ops/resize.py:imresize`): two einsums over :func:`resize_matrix`, in
+    float32 with TF32 off (float64 for a float64 image), out in ``img.dtype``."""
+    squeeze = img.ndim == 3
+    if squeeze:
+        img = img[None]
+    B, H, W, C = img.shape
+    if out_shape is None:
+        if scale is None:
+            raise ValueError("imresize needs a scale or an out_shape")
+        out_h, out_w = int(np.ceil(H * scale)), int(np.ceil(W * scale))
+    else:
+        out_h, out_w = out_shape
+    dtype = torch.float64 if img.dtype == torch.float64 else torch.float32
+    Mh = torch.from_numpy(resize_matrix(H, out_h, antialias)).to(img.device, dtype)
+    Mw = torch.from_numpy(resize_matrix(W, out_w, antialias)).to(img.device, dtype)
+    with full_float32():
+        out = torch.einsum("oh,bhwc->bowc", Mh, img.to(dtype))
+        out = torch.einsum("pw,bowc->bopc", Mw, out)
+    out = out.to(img.dtype)
+    return out[0] if squeeze else out

@@ -3,6 +3,7 @@
     python -m conditional_score_diffusion_tpu_torch.profile_sampler                 # on a GPU
     python -m conditional_score_diffusion_tpu_torch.profile_sampler --path tail     # float32
     python -m conditional_score_diffusion_tpu_torch.profile_sampler --path ncsnpp   # NCSN++
+    python -m conditional_score_diffusion_tpu_torch.profile_sampler --path harness  # texture64 EMA
     python -m conditional_score_diffusion_tpu_torch.profile_sampler --count         # anywhere
 
 ``--count`` builds the path's full-width model on the meta device and counts
@@ -20,7 +21,9 @@ and one with them off, whose kernels are listed by device time.
 compute, ``fused_block`` and ``fused_tail`` (off: both off, still
 bfloat16); ``--path tail`` is the float32 path with ``fused_tail`` alone;
 ``--path ncsnpp`` is the DF2K direct 4x NCSN++ sampler in float32 with the
-FIR kernels (off: their plain versions).  TF32 is off, as in the port's
+FIR kernels (off: their plain versions); ``--path harness`` is the --mode
+test harness's sampler, the trained texture64 EMA (not random weights) on
+its test batch of 16 in float32 with ``fused_tail``.  TF32 is off, as in the port's
 float32 runs.  The card's name and power limit are printed first.
 """
 
@@ -39,8 +42,10 @@ from .configs import (
     texture160_kxsr_ncsnpp_config,
     texture160_sr_cmde_bf16_block_config,
     texture160_sr_cmde_config,
+    texture64_sr_cmde_test_config,
 )
 from .data.pkl_datasets import iter_test_batches
+from .eval.harness import load_model
 from .models import create_model, init_model_random, layers
 from .models.layers import (
     NIN,
@@ -63,6 +68,7 @@ PATHS = {
     "block": texture160_sr_cmde_bf16_block_config,
     "tail": texture160_sr_cmde_config,
     "ncsnpp": texture160_kxsr_ncsnpp_config,
+    "harness": texture64_sr_cmde_test_config,
 }
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -214,7 +220,10 @@ def main() -> int:
     batch = next(iter_test_batches(config))
     y = torch.from_numpy(batch["y"]).cuda()
     shape = tuple(batch["x"].shape)
-    model_on = init_model_random(config, seed=config.seed, device="cuda")
+    if args.path == "harness":
+        model_on, _ = load_model(config, "cuda")
+    else:
+        model_on = init_model_random(config, seed=config.seed, device="cuda")
     if args.path == "ncsnpp":  # off: the same model with the FIR kernels' plain versions
         model_off, off = model_on, plain_versions
     else:
@@ -259,6 +268,7 @@ def main() -> int:
         "block": "fused_block+fused_tail, bfloat16",
         "tail": "fused_tail, float32",
         "ncsnpp": "NCSN++ FIR kernels, float32",
+        "harness": "texture64 trained EMA, fused_tail, float32",
     }[args.path]
     for fused in (True, False):
         ts = times[fused]

@@ -8,13 +8,19 @@ and the step; the newest ``max_to_keep`` are kept.  A file is written under
 a temporary name and renamed, so a crash never leaves a torn checkpoint.
 Restoring into a state built from the same recipe continues bit for bit on
 the same device (`training/steps.py` derives every draw from the step).
+
+For evaluation, :func:`save_ema` writes an EMA-only file ``{step, ema}``
+(float32, as trained; `tests/_torch_port_convert_texture64.py` writes the
+trained texture64 checkpoint's so), and :func:`load_eval_weights` reads the
+weights to evaluate from such a file or from a directory of train
+checkpoints (the newest one's EMA).
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -82,3 +88,33 @@ class CheckpointManager:
         # loaded on the CPU: the load_state_dict calls copy to the state's
         # devices, and Adam's step counts stay CPU scalars as torch keeps them
         return load_state_dict(state, torch.load(self.path(step), map_location="cpu", weights_only=True))
+
+
+def save_ema(path: str, step: int, ema: Dict[str, torch.Tensor]) -> str:
+    """Write an EMA-only file ``{'step', 'ema'}``; every tensor must be
+    float32 (nothing is cast down)."""
+    for name, t in ema.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"EMA tensor {name} is {t.dtype}; an EMA file holds float32")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save({"step": int(step), "ema": {k: t.detach().cpu().contiguous() for k, t in ema.items()}}, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_eval_weights(path: str) -> Tuple[int, Dict[str, torch.Tensor]]:
+    """``(step, state_dict)`` of the EMA weights at ``path``: an EMA-only
+    file (:func:`save_ema`), or a directory of train checkpoints, whose
+    newest one's model entry (for buffers) is overlaid with its EMA."""
+    if os.path.isdir(path):
+        mgr = CheckpointManager(path)
+        step = mgr.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {path}")
+        saved = torch.load(mgr.path(step), map_location="cpu", weights_only=True)
+        weights = dict(saved["model"])
+        weights.update(saved["ema"]["params"])
+        return int(saved["step"]), weights
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    return int(saved["step"]), saved["ema"]

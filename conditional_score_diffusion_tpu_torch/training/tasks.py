@@ -3,7 +3,7 @@
 into the SDE of a step, batch preparation and the sampler.
 
 Ported: ``base`` (its SDE; its sampler waits for the unconditional
-sampler, ROADMAP.md section 1, item 3), ``conditional`` (CDE/CDiffE/CMDE)
+sampler, ROADMAP.md section 1, item 2), ``conditional`` (CDE/CDiffE/CMDE)
 and ``conditional_decreasing_variance`` (VS-CMDE: the SDE of a step carries
 the scheduled sigma_y).  The Haar tasks wait for ROADMAP.md section 1, item
 7, and the deprecated single-sigma variant is not ported.
@@ -46,7 +46,7 @@ class BaseTask:
         return batch
 
     def sampling_fn(self, shape, **overrides) -> Callable:
-        raise NotImplementedError("the unconditional sampler is not ported (ROADMAP.md section 1, item 3)")
+        raise NotImplementedError("the unconditional sampler is not ported (ROADMAP.md section 1, item 2)")
 
 
 @register_trainable(name="conditional")

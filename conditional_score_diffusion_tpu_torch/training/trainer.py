@@ -20,7 +20,7 @@ and every
 The scalars go, with the JAX tags, to ``<log_path>/scalars.jsonl``, one
 JSON object ``{"tag", "value", "step"}`` a line (the card has no
 TensorBoard).  Callbacks, visualization, sampling during training and the
-profiler window wait for ROADMAP.md section 1, item 6.
+profiler window wait for ROADMAP.md section 1, item 5.
 """
 
 from __future__ import annotations

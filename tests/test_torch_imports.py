@@ -38,7 +38,8 @@ SCRIPT = textwrap.dedent(
         importlib.import_module(name)
     import chip_smoke
     sys.path.insert(0, "tests")
-    import test_torch_conv3x3_cuda, test_torch_fir_cuda, test_torch_fused_block_cuda, test_torch_fused_tail_cuda
+    import test_torch_conv3x3_cuda, test_torch_fir_cuda, test_torch_fused_act_cuda, test_torch_fused_block_cuda
+    import test_torch_fused_tail_cuda
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
     assert not loaded, loaded
     print(len(names), "modules")
@@ -63,5 +64,7 @@ def test_port_imports_without_jax():
         "profile_sampler", "ops.conv3x3", "ops.forward_only", "losses.continuous", "losses.factory",
         "models.ema", "training.state", "training.steps", "training.tasks", "training.checkpoint",
         "training.trainer", "main", "configs.texture160_sr_cmde_conv3x3", "profile_train_step",
+        "ops.fused_act", "eval.metrics", "eval.harness", "eval.pipeline", "configs.texture64_sr_cmde",
+        "configs.texture64_sr_cmde_test",
     ):
         assert f"conditional_score_diffusion_tpu_torch.{name}" in names, name

@@ -143,7 +143,7 @@ def test_unconditional_loss_names_its_roadmap_item():
     _, tconfig = train_toy_configs()
     del tconfig.training.conditioning_approach
     tconfig.training.lightning_module = "base"
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="item 2"):
         build_loss_fn(tconfig, torch.nn.Identity(), None, train=True)
 
 
