@@ -10,8 +10,9 @@ Phases, each printing its own line with its seconds:
    (both off: the port runs float32 as float32).
 2. build: builds the five kernel sources (csrc/gn_silu_conv3x3.cu,
    csrc/resblock_fused.cu, csrc/fir_resample.cu, csrc/conv3x3.cu,
-   csrc/fused_bias_act.cu) with nvcc, in parallel, each with its seconds and
-   its ptxas lines.
+   csrc/fused_bias_act.cu; the first and fourth include the shared 3x3 main
+   loop csrc/conv3x3_core.cuh) with nvcc, in parallel, each with its seconds
+   and its ptxas lines.
 3. kernel: each kernel against its plain PyTorch version at the shapes its
    path gives it, float32 and bfloat16 (2e-2 of the largest magnitude;
    float32 1e-4, the FIR kernels 1e-5): the fused tail at the flagship's
@@ -20,10 +21,12 @@ Phases, each printing its own line with its seconds:
    shortcut, 10x10 288->288, 5x5 288->288; split 5x5 288+288, 10x10
    288+288, 10x10 288+192 -> 288, where a 15-channel group straddles the
    concat), with and without temb and once with skip_rescale; then each
-   one's time, its plain version's, a library yardstick's and its bound, by
-   CUDA events (B=8).  The same three kernels at the NCSN++ block variant's
-   sites (tails at 20x20x128 to 5x5x256; blocks with the 1x1-conv shortcut
-   and skip_rescale, splits 256+256 and 256+128), checked only.  The FIR
+   one's time, its plain version's, a library yardstick's and its bound
+   (B=8), and the kernel / library ratio.  Every time is the device's: CUDA
+   events around calls enqueued behind a `torch.cuda._sleep` (`time_ms`).  The same three kernels at the NCSN++ block variant's
+   sites (tails at 20x20x128 to 5x5x256, float32 timed; blocks with the
+   1x1-conv shortcut and skip_rescale, splits 256+256 and 256+128, checked
+   only).  The FIR
    upsample and downsample at the 20 shapes of one NCSN++ forward (5x5 to
    160x160, 6 to 256 channels; a non-symmetric kernel at two of them),
    timed beside their plain versions, the depthwise cuDNN call and the
@@ -48,7 +51,8 @@ Phases, each printing its own line with its seconds:
    network output on the clean batch; float32 at 1e-4, bfloat16 as
    `agreement` says (2e-2).  After the samplers, the train step with kernel
    4 on and off (`train_agreement`), and the trained texture64 EMA's score
-   with the fused tail on and off (`texture64_agreement`, 1e-4).
+   with the fused tail on and off (`texture64_agreement`: float32 1e-4;
+   bfloat16 compute, the tail's tensor-core path, by norm 2e-2).
 5. main (the flagship block path): texture160 test batch 0 (8 images, y =
    8x SR degradation), the full-width ddpm_paired with seeded N(0, 0.02)
    weights, bfloat16 compute through `get_score_fn(compute_dtype=...)` ->
@@ -150,6 +154,7 @@ from conditional_score_diffusion_tpu_torch.training.trainer import Trainer, read
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # float32 outside the tensor cores
 PEAK_BYTES = 3.35e12
+SLEEP_CYCLES_PER_S = 1.98e9  # `torch.cuda._sleep` spins SM clock cycles; 1.98 GHz is the H100's top clock
 BATCH, GROUPS = 8, 32
 # Gated tails of one flagship forward: (H, C, calls per forward) with the
 # tail alone (the float32 tail path) and with the whole-block kernels on.
@@ -282,16 +287,34 @@ def phase(name, t0, msg=""):
 
 
 def time_ms(fn, iters=100, warmup=10):
-    """Mean device time of one call, by CUDA events over ``iters`` calls."""
+    """Mean device time of one call, by CUDA events around ``iters`` calls.
+
+    The calls are enqueued behind a `torch.cuda._sleep` that lasts longer
+    than their enqueue (measured on 3 calls, x2, + 0.2 ms), so the start
+    event fires when the queue is full and the events time the device's
+    back-to-back work, not the host's ~25-40 us of Python per call."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        fn()
+    enqueue_s = (time.perf_counter() - t) / 3 * iters
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * enqueue_s + 2e-4) * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ratio(row):
+    """Record and format the kernel's time over the library call's."""
+    row["library_ratio"] = row["ms"] / row["library_ms"]
+    return f", kernel / library {row['library_ratio']:.2f}"
 
 
 def dname(dtype):
@@ -375,7 +398,7 @@ def check_tail():
                 )
                 print(
                     f"    time: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms,"
-                    f" cuDNN conv only {row['library_ms']:.4f} ms,"
+                    f" cuDNN conv only {row['library_ms']:.4f} ms{ratio(row)},"
                     f" bound {bound_ms:.4f} ms ({bound_by}), {flops / row['ms'] / 1e9:.2f} TFLOP/s",
                     flush=True,
                 )
@@ -462,7 +485,7 @@ def check_blocks():
                 )
                 print(
                     f"    time: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms,"
-                    f" cuDNN convs + matmul {row['library_ms']:.4f} ms,"
+                    f" cuDNN convs + matmul {row['library_ms']:.4f} ms{ratio(row)},"
                     f" bound {bound_ms:.4f} ms ({bound_by}), {flops / row['ms'] / 1e9:.2f} TFLOP/s",
                     flush=True,
                 )
@@ -471,15 +494,31 @@ def check_blocks():
 
 
 def check_ncsnpp_sites():
-    """Kernels 1-3 against plain at the NCSN++ block variant's sites."""
+    """Kernels 1-3 against plain at the NCSN++ block variant's sites; the
+    tail timed in float32 (that variant's type); returns the tail's rows."""
+    rows = []
     for h, c in NCSNPP_TAIL_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             x, w, gamma, beta, bias, _ = tail_inputs(h, c, dtype, seed=h * c + 1)
-            check_close(
+            err = check_close(
                 f"NCSN++ tail {h}x{h}x{c} {dname(dtype)}",
                 fused_tail.gn_silu_conv3x3(x, w, gamma, beta, GROUPS, bias=bias),
                 fused_tail.gn_silu_conv3x3_plain(x, w, gamma, beta, GROUPS, bias=bias), dtype,
             )
+            if dtype != torch.float32:
+                continue
+            flops, nbytes = tail_work(h, c, dtype)
+            bound_ms, bound_by = bound(flops, nbytes, dtype)
+            row = dict(
+                shape=f"{BATCH}x{h}x{h}x{c}", dtype=dname(dtype), site="NCSN++ block variant", max_abs_err=err,
+                gflop=flops / 1e9, bound_ms=bound_ms, bound_by=bound_by,
+                ms=time_ms(lambda: fused_tail.gn_silu_conv3x3(x, w, gamma, beta, GROUPS, bias=bias)),
+                plain_ms=time_ms(lambda: fused_tail.gn_silu_conv3x3_plain(x, w, gamma, beta, GROUPS, bias=bias)),
+                library_ms=time_ms(lambda: conv3x3_nhwc(x, w, bias)),
+            )
+            print(f"    time: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, cuDNN conv only"
+                  f" {row['library_ms']:.4f} ms{ratio(row)}, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+            rows.append(row)
     for name, h, ca, cb, cout in NCSNPP_BLOCK_SHAPES:
         label = f"NCSN++ {name} {h}x{h}x{ca}" + (f"+{cb}" if cb else "") + f"->{cout}"
         for dtype in (torch.float32, torch.bfloat16):
@@ -490,6 +529,7 @@ def check_ncsnpp_sites():
                     f"{label} {dname(dtype)} temb={with_temb} skip_rescale=True",
                     block_call(x, skip, kw), block_call(x, skip, kw, plain=True), dtype,
                 )
+    return rows
 
 
 # ---- the FIR resampling kernels ---------------------------------------------
@@ -543,7 +583,7 @@ def check_fir():
             )
             print(
                 f"    time: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms,"
-                f" depthwise cuDNN {row['library_ms']:.4f} ms (max diff {lib_err:.1e}),"
+                f" depthwise cuDNN {row['library_ms']:.4f} ms (max diff {lib_err:.1e}){ratio(row)},"
                 f" bound {bound_ms:.4f} ms ({bound_by}), {nbytes / row['ms'] / 1e6:.1f} GB/s",
                 flush=True,
             )
@@ -610,7 +650,8 @@ def time_conv_row(row, h, cin, cout, dtype, kernel, plain, library, batch=TRAIN_
         library_ms=time_ms(library, iters, warmup=2),
     )
     print(
-        f"    time: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, F.conv2d {row['library_ms']:.4f} ms,"
+        f"    time: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, F.conv2d {row['library_ms']:.4f} ms"
+        f"{ratio(row)},"
         f" bound {bound_ms:.4f} ms ({bound_by}), {flops / row['ms'] / 1e9:.2f} TFLOP/s",
         flush=True,
     )
@@ -1025,7 +1066,7 @@ def check_fused_act():
             row = dict(shape=list(shape), bias=with_bias, negative_slope=slope, scale=scale, dtype=dname(dtype),
                        max_abs_err=err, mbytes=itemsize(dtype) * 2 * n / 1e6, bound_ms=bound_ms, bound_by=bound_by,
                        ms=time_ms(kernel), plain_ms=time_ms(plain), library_ms=None)
-            print(f"    time: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms"
+            print(f"    time: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, no library call, bound {bound_ms:.4f} ms"
                   f" ({bound_by}), {2 * n * itemsize(dtype) / row['ms'] / 1e6:.1f} GB/s", flush=True)
             rows.append(row)
     return rows
@@ -1093,15 +1134,17 @@ def check_harness_tails(shapes):
                 library_ms=time_ms(lambda: conv3x3_nhwc(x, w, bias)),
             )
             print(f"    time: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, cuDNN conv only"
-                  f" {row['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+                  f" {row['library_ms']:.4f} ms{ratio(row)}, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
             rows.append(row)
     return rows
 
 
 def texture64_agreement(config):
     """The trained EMA's conditional score with the fused tail on and off on
-    test batch 0 at t = 0.5 (x_t and y_t drawn from the SDE's marginals),
-    float32, at `TEXTURE64_AGREE_TOL` of its largest magnitude."""
+    test batch 0 at t = 0.5 (x_t and y_t drawn from the SDE's marginals):
+    float32 at `TEXTURE64_AGREE_TOL` of its largest magnitude; bfloat16
+    compute (the tail's tensor-core path, 17 launches) by norm at
+    `BF16_AGREE_TOL`, as `agreement` holds the random-weight paths."""
     t = time.perf_counter()
     model, step = load_model(config, "cuda")
     off_config = copy.deepcopy(config)
@@ -1118,13 +1161,22 @@ def texture64_agreement(config):
     )
     with torch.no_grad():
         on, off = (score_fn(m, sde)(x_t, y_t, vec_t) for m in (model, model_off))
-    err = rel_err(on, off)
+        launches = fused_tail.gn_silu_conv3x3.launches
+        on_bf16 = score_fn(model, sde, torch.bfloat16)(x_t, y_t, vec_t)
+        bf16_launches = fused_tail.gn_silu_conv3x3.launches - launches
+        off_bf16 = score_fn(model_off, sde, torch.bfloat16)(x_t, y_t, vec_t)
+    err, err_bf16 = rel_err(on, off), norm_rel_err(on_bf16, off_bf16)
     ok = err <= TEXTURE64_AGREE_TOL and bool(torch.isfinite(on).all())
+    ok_bf16 = err_bf16 <= BF16_AGREE_TOL and bool(torch.isfinite(on_bf16).all()) and bf16_launches == 17
     phase("agreement", t, f"texture64 trained EMA (step {step}): score with the fused tail on vs off, rel err"
-                          f" {err:.3e} (tol {TEXTURE64_AGREE_TOL:.0e}) {'ok' if ok else 'FAIL'}")
-    if not ok:
+                          f" {err:.3e} (tol {TEXTURE64_AGREE_TOL:.0e}) {'ok' if ok else 'FAIL'}; bfloat16 compute"
+                          f" ({bf16_launches} tail launches, the tensor-core path): by norm {err_bf16:.3e}, rel err"
+                          f" {rel_err(on_bf16, off_bf16):.3e} (tol by norm {BF16_AGREE_TOL:.0e})"
+                          f" {'ok' if ok_bf16 else 'FAIL'}")
+    if not (ok and ok_bf16):
         raise RuntimeError("texture64: the fused tail disagrees with the unfused path on the trained weights")
-    return dict(path="texture64 trained EMA, fused tail", tol=TEXTURE64_AGREE_TOL, score_rel_err=err)
+    return dict(path="texture64 trained EMA, fused tail", tol=TEXTURE64_AGREE_TOL, score_rel_err=err,
+                bfloat16=dict(tol=BF16_AGREE_TOL, score_norm_rel_err=err_bf16, tail_launches=bf16_launches))
 
 
 def psnr_without_quantization(config, draw):
@@ -1250,7 +1302,7 @@ def main() -> int:
     t = time.perf_counter()
     tail_rows = check_tail()
     block_rows = check_blocks()
-    check_ncsnpp_sites()
+    ncsnpp_tail_rows = check_ncsnpp_sites()
     fir_rows = check_fir()
     shapes = conv_call_shapes(train_configs())
     per_step = tuple(sum(n for (ph, *_), n in shapes.items() if ph == p) for p in ("forward", "dx"))
@@ -1405,7 +1457,7 @@ def main() -> int:
         kernels.append(k)
     for k in kernels:
         k["per_shape"] = [
-            r for r in tail_rows + harness_tail_rows + block_rows + fir_rows
+            r for r in tail_rows + harness_tail_rows + ncsnpp_tail_rows + block_rows + fir_rows
             if r.get("kernel", "gn_silu_conv3x3") == k["name"]
         ]
     f32 = conv_sums(conv_rows, torch.float32)

@@ -38,13 +38,20 @@ Layouts: ``x`` NHWC (or (H, W, B, C) for the hmajor entry), contiguous;
 ``w`` OIHW (PyTorch's conv layout; the JAX functions take HWIO), of
 ``x``'s dtype; ``bias`` float32 (Cout,) or None.  ``x`` float32 or bfloat16;
 the sums are float32 and the output, in ``x``'s dtype, is rounded once.
+
+:func:`launch_plan` is the launch plan of the 3x3 main loop
+(`csrc/conv3x3_core.cuh`) that this kernel and the fused tail
+(`ops/fused_tail.py`) share: tile, stages, split-K count (the size of the
+thread-block cluster), copy widths, shared memory.  It is computed here,
+on the host, so the CPU tests reach it; the C entries check it against
+what they compiled.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -55,6 +62,102 @@ from .fused_tail import DTYPES, check_arg, check_input
 from .nvcc import KernelLibrary
 
 INT32_LIMIT = 2**31  # the kernel indexes with 32-bit integers
+SM_COUNT = 132  # streaming multiprocessors of an H100 SXM: one wave of blocks
+MAX_SPLITS = 8  # split-K blocks of one thread-block cluster (the portable cluster size)
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may have on sm_90 (227 KB)
+# The compiled tile configurations of `csrc/conv3x3_core.cuh`, by element
+# type and tile width BN: (BM, BK, stages, blocks an SM holds).  The
+# narrowest serves Cout up to its width.  float32 on the CUDA cores,
+# bfloat16 on the tensor cores, where 64-row tiles serve the tails' widths
+# (twice the blocks of 128-row ones on the small sampler problems).
+TILES = {
+    torch.float32: {96: (128, 16, 4, 2), 64: (128, 16, 4, 2), 8: (512, 16, 3, 1)},
+    torch.bfloat16: {128: (64, 64, 3, 2), 96: (64, 64, 3, 2), 64: (128, 64, 3, 2), 16: (128, 64, 3, 2)},
+}
+# Split-K: the counts a cluster may have (clusters of 5 and 7 blocks pack
+# the GPCs badly: 8x20x20x192 float32 took 0.11 ms split 5 ways, 0.087 ms 4
+# ways), and the fewest K values a split should sum where the splits put two
+# blocks on an SM (below it the split's pipeline fill and the cluster
+# reduction cost more than the split saves: 16x16x16x128 float32 took 0.050
+# ms split 2 ways, 0.065 ms 4 ways).  Both measured on an NVIDIA H100 80GB
+# HBM3 at 700 W.
+SPLIT_COUNTS = (2, 3, 4, 6, 8)
+MIN_SPLIT_K = 320
+
+
+class LaunchPlan(NamedTuple):
+    """One launch of the 3x3 main loop; see :func:`launch_plan`."""
+
+    bm: int
+    bn: int
+    bk: int
+    stages: int
+    splits: int  # blocks that share one output tile's K chunks: one thread-block cluster
+    smem: int  # dynamic shared memory bytes a block
+    a_vec: int  # 1: 16-byte copies of x along channels; 0: one element a copy
+    b_vec: int  # the same for the weights along output channels
+    mtiles: int
+    ntiles: int
+    nchunks: int  # BK-wide chunks of K = 9 * Cin
+
+    def c_args(self):
+        """The ints the C entries take, in their order."""
+        return (self.bm, self.bn, self.bk, self.stages, self.splits, self.smem, self.a_vec, self.b_vec)
+
+
+def launch_plan(M: int, Cin: int, Cout: int, dtype: torch.dtype, x_aligned: bool = True) -> LaunchPlan:
+    """The plan of one main-loop launch over ``M`` pixels, ``Cin`` -> ``Cout``.
+
+    The tile width BN wastes the fewest output columns (the wider on a tie;
+    the narrow tile for Cout up to its width).  Copies are 16 bytes where a
+    pixel's channels (``Cin``; ``x_aligned``: x's address too) or a weight
+    row (``Cout``) are whole 16-byte vectors.  Where the M x N tiles are
+    fewer than the SMs, K's chunks are split over ``splits`` >= 2 blocks of
+    one cluster: the largest of :data:`SPLIT_COUNTS` whose blocks fit the
+    SMs in one wave and, where they take two blocks an SM, sum
+    :data:`MIN_SPLIT_K` K values or more each; at most :data:`MAX_SPLITS`
+    and one per chunk.  The shared memory holds
+    the stages' A and B tiles, or the float32 output tile of the epilogue,
+    whichever is larger.
+    """
+    configs = TILES[dtype]
+    narrow = min(configs)
+    if Cout <= narrow:
+        bn = narrow
+    else:
+        bn = min((b for b in configs if b != narrow), key=lambda b: (-(-Cout // b) * b - Cout, -b))
+    bm, bk, stages, per_sm = configs[bn]
+    item = 4 if dtype == torch.float32 else 2
+    pad_a, pad_b = (4, 0) if dtype == torch.float32 else (8, 8)
+    stage_bytes = (bm * (bk + pad_a) + bk * (bn + pad_b)) * item
+    smem = max(stages * stage_bytes, bm * (bn + 4) * 4)
+    vec = 16 // item
+    mtiles, ntiles, nchunks = -(-M // bm), -(-Cout // bn), -(-9 * Cin // bk)
+    max_splits = min(MAX_SPLITS, nchunks)
+    tiles, splits = mtiles * ntiles, 1
+    if tiles < SM_COUNT and max_splits > 1:
+        fits = [
+            s for s in SPLIT_COUNTS
+            if s <= max_splits and tiles * s <= SM_COUNT * per_sm
+            and (tiles * s <= SM_COUNT or 9 * Cin >= s * MIN_SPLIT_K)
+        ]
+        splits = max(fits, default=2)
+    return LaunchPlan(
+        bm, bn, bk, stages, splits, smem, int(Cin % vec == 0 and x_aligned), int(Cout % vec == 0),
+        mtiles, ntiles, nchunks,
+    )
+
+
+def split_k_ranges(plan: LaunchPlan, Cin: int):
+    """The [k0, k1) range of K = 9 * Cin (k = tap * Cin + channel) that each
+    split of ``plan`` sums, in rank order, as the kernel cuts it."""
+    K, n, s = 9 * Cin, plan.nchunks, plan.splits
+    return [(r * n // s * plan.bk, min(K, (r + 1) * n // s * plan.bk)) for r in range(s)]
+
+
+def hwio(w: torch.Tensor) -> torch.Tensor:
+    """OIHW ``w`` as the main loop's B operand: (3, 3, Cin, Cout), contiguous."""
+    return w.permute(2, 3, 1, 0).contiguous()
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -77,7 +180,7 @@ def conv3x3_hmajor_plain(xt: torch.Tensor, w: torch.Tensor, bias: Optional[torch
 def load_library() -> KernelLibrary:
     """Build ``csrc/conv3x3.cu`` (once per source content) and load it."""
     built = nvcc.build("conv3x3")
-    built.lib.conv3x3_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    built.lib.conv3x3_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
     built.lib.conv3x3_launch.restype = ctypes.c_int
     built.lib.conv3x3_error_string.argtypes = [ctypes.c_int]
     built.lib.conv3x3_error_string.restype = ctypes.c_char_p
@@ -107,10 +210,13 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], dims
     """One kernel launch: ``dims`` = (B, H, W, Cin, Cout), strides of
     (b, h, w) in elements."""
     lib = load_library().lib
-    w_hwio = w.permute(2, 3, 1, 0).contiguous()  # (3, 3, Cin, Cout)
+    B, H, W, Cin, Cout = dims
+    plan = launch_plan(B * H * W, Cin, Cout, x.dtype, x_aligned=x.data_ptr() % 16 == 0)
+    w_kn = hwio(w)  # referenced until the launch is enqueued
     err = lib.conv3x3_launch(
-        x.data_ptr(), w_hwio.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
-        *dims, *x_strides, *out_strides, DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), w_kn.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
+        *dims, *x_strides, *out_strides, DTYPES[x.dtype], *plan.c_args(),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         msg = lib.conv3x3_error_string(err).decode()

@@ -4,8 +4,12 @@ Port of `conditional_score_diffusion_tpu/ops/fused_block_pallas.py`:
 `group_norm_stats` (:44) and `gn_silu_conv3x3_nhwc` (:593), whose Pallas
 kernel is `gn_silu_conv3x3_hmajor` (:107).  The CUDA kernel is
 `csrc/gn_silu_conv3x3.cu` (its header says what bounds it on the card and
-what its design does about that).  `ops/nvcc.py` builds it for sm_90a into
-`_build/` at first use; it is called through ctypes.
+what its design does about that): a GroupNorm pass that writes the
+activation silu(GroupNorm(x)), rounded to x's type, once per element, then
+the 3x3 main loop that it shares with kernel 4 (`csrc/conv3x3_core.cuh`,
+launched with the plan of `ops.conv3x3.launch_plan`) on that activation.
+`ops/nvcc.py` builds it for sm_90a into `_build/` at first use; it is
+called through ctypes.
 
 :func:`gn_silu_conv3x3` takes the kernel for a CUDA tensor and the plain
 version :func:`gn_silu_conv3x3_plain` for a CPU tensor, after the same
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from typing import Optional
 
 import torch
@@ -89,7 +94,7 @@ def gn_silu_conv3x3_plain(
 def load_library() -> KernelLibrary:
     """Build ``csrc/gn_silu_conv3x3.cu`` (once per source content) and load it."""
     built = nvcc.build("gn_silu_conv3x3")
-    built.lib.gn_silu_conv3x3_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+    built.lib.gn_silu_conv3x3_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 15 + [
         ctypes.c_void_p
     ]
     built.lib.gn_silu_conv3x3_launch.restype = ctypes.c_int
@@ -157,18 +162,54 @@ def gn_silu_conv3x3(
     return forward_only("gn_silu_conv3x3", lambda: _launch(*args), args, EVAL_ONLY)
 
 
+# id(w) -> (a weak reference to w, w's (data_ptr, version, dtype, device,
+# shape), w as the main loop's B operand); see `_packed_weight`.
+_PACKED: dict = {}
+
+
+def _weight_key(w: torch.Tensor):
+    """What the packed copy of ``w`` was made from: its storage, version
+    counter, dtype, device and shape.  `nn.Module.to` and its kin swap a
+    parameter's data in place (same object, same version), which this
+    sees."""
+    return (w.data_ptr(), w._version, w.dtype, w.device, tuple(w.shape))
+
+
+def _packed_weight(w: torch.Tensor) -> torch.Tensor:
+    """``w`` repacked to (3, 3, Cin, Cout) (`ops.conv3x3.hwio`), kept while
+    ``w`` lives and :func:`_weight_key` stands still: the tail runs in eval
+    mode on the model's own weights, which no call changes, so its repack
+    (a copy kernel of 0.7-3 MB a call) is made once per weight.  An in-place
+    update of ``w`` bumps its version and a conversion (``.to``, ``.cuda``,
+    ``.bfloat16``) moves its data, and either repacks; an in-place write
+    through ``w.data`` does neither, and the port makes none."""
+    from .conv3x3 import hwio  # conv3x3 imports this module
+
+    key = id(w)
+    hit = _PACKED.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == _weight_key(w):
+        return hit[2]
+    packed = hwio(w)
+    _PACKED[key] = (weakref.ref(w, lambda _, key=key: _PACKED.pop(key, None)), _weight_key(w), packed)
+    return packed
+
+
 def _launch(x, w, gamma, beta, num_groups, bias, temb):
+    from .conv3x3 import launch_plan  # conv3x3 imports this module
+
     B, H, W, Cin = x.shape
     Cout, dev = w.shape[0], x.device
     lib = load_library().lib
     out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=dev)
-    scale_shift = torch.empty((2, B, Cin), dtype=torch.float32, device=dev)
+    act = torch.empty_like(x)  # silu(GroupNorm(x)), the main loop's A operand
+    plan = launch_plan(B * H * W, Cin, Cout, x.dtype, x_aligned=act.data_ptr() % 16 == 0)
+    w_kn = _packed_weight(w)
     err = lib.gn_silu_conv3x3_launch(
-        x.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        x.data_ptr(), w_kn.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if temb is None else temb.data_ptr(),
-        out.data_ptr(), scale_shift.data_ptr(),
-        B, H, W, Cin, Cout, num_groups, DTYPES[x.dtype],
+        out.data_ptr(), act.data_ptr(),
+        B, H, W, Cin, Cout, num_groups, DTYPES[x.dtype], *plan.c_args(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

@@ -3,8 +3,9 @@
 Every kernel of the port is a ``.cu`` file with a plain C interface.  It is
 compiled for sm_90a into a shared library under ``_build/`` at first use
 (never at import: the CPU tests import every module), named by a hash of
-the source and the flags so a changed source builds anew, and loaded with
-`ctypes`.  The caller sets the C functions' argument types.
+the source, every shared header ``csrc/*.cuh`` and the flags (:func:`source_digest`),
+so a changed source or header builds anew, and loaded with `ctypes`.  The
+caller sets the C functions' argument types.
 """
 
 from __future__ import annotations
@@ -42,11 +43,21 @@ def _nvcc() -> str:
     return path
 
 
+def source_digest(name: str, csrc: Path = CSRC) -> str:
+    """Hash of ``<csrc>/<name>.cu``, every ``<csrc>/*.cuh`` it may include
+    (by name and content, in name order) and the nvcc flags."""
+    h = hashlib.sha1((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:12]
+
+
 @functools.cache
 def build(name: str) -> KernelLibrary:
-    """Build ``csrc/<name>.cu`` (once per source content) and load it."""
+    """Build ``csrc/<name>.cu`` (once per content of it and the headers) and load it."""
     source = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = source_digest(name)
     path = BUILD_DIR / f"lib{name}-{digest}.so"
     seconds, log = 0.0, ""
     if not path.exists():

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_splitk import check_plan, split_k_conv
 from _torch_port_toy import hold_gradients, jax_toy_params, toy_inputs, train_toy_configs
 from conditional_score_diffusion_tpu.ops import conv_pallas
 from conditional_score_diffusion_tpu_torch.models import create_model, layers
@@ -236,3 +237,83 @@ def test_flagship_train_step_launch_counts_match_chip_smoke(monkeypatch):
     assert calls["tail"] == chip_smoke.PER_FORWARD_TAIL_PATH["gn_silu_conv3x3"]
     assert (calls["forward"], calls["dx"]) == chip_smoke.CONV_PER_TRAIN_STEP
     assert calls["eval"] == chip_smoke.CONV_PER_EVAL_FORWARD
+
+
+# ---- the launch plan and its split-K partition (csrc/conv3x3_core.cuh) --------
+
+
+@pytest.fixture(scope="module")
+def train_step_shapes():
+    """(phase, H, Cin, Cout) -> calls of one flagship train step, counted on
+    the meta device as `chip_smoke.py` counts them."""
+    import chip_smoke
+
+    shapes = chip_smoke.conv_call_shapes(chip_smoke.train_configs())
+    per_step = tuple(sum(n for (ph, *_), n in shapes.items() if ph == p) for p in ("forward", "dx"))
+    assert per_step == chip_smoke.CONV_PER_TRAIN_STEP
+    return shapes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launch_plan_at_every_train_step_shape(train_step_shapes, dtype):
+    import chip_smoke
+
+    for ph, h, cin, cout in train_step_shapes:
+        plan = check_plan(chip_smoke.TRAIN_BATCH * h * h, cin, cout, dtype)
+        if h <= 10:
+            assert plan.splits > 1, (ph, h, cin, cout)  # the 5x5 and 10x10 convs fill the card by split-K
+        assert plan.a_vec == (cin % (16 // torch.tensor([], dtype=dtype).element_size()) == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,Cin,Cout", [(147, 6, 6), (100, 13, 20), (3200, 192, 192), (400, 288, 288),
+                                        (409600, 96, 96), (409600, 6, 96), (409600, 96, 6), (1, 1, 1)])
+def test_launch_plan_at_odd_shapes(M, Cin, Cout, dtype, monkeypatch):
+    check_plan(M, Cin, Cout, dtype)
+    monkeypatch.setattr(ops, "MAX_SPLITS", 1)  # what the card tests do to force the unsplit plan
+    assert ops.launch_plan(M, Cin, Cout, dtype).splits == 1
+
+
+def test_launch_plan_copy_widths():
+    plan = ops.launch_plan(1000, 6, 96, torch.float32)
+    assert (plan.a_vec, plan.b_vec) == (0, 1)
+    plan = ops.launch_plan(1000, 96, 6, torch.bfloat16)
+    assert (plan.a_vec, plan.b_vec) == (1, 0)
+    assert ops.launch_plan(1000, 96, 96, torch.float32, x_aligned=False).a_vec == 0
+
+
+# (B, H, W, Cin, Cout): the input conv's Cin = 6, the output conv's Cout = 6,
+# a ragged M (3 * 7 * 5 = 105 pixels), 4x4 images, a split of 8 at 5x5.
+SPLIT_SHAPES = [(2, 8, 8, 6, 32), (3, 7, 5, 32, 6), (3, 7, 5, 24, 40), (4, 4, 4, 64, 64), (2, 5, 5, 96, 96)]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_split_k_emulation_matches_plain(shape):
+    """Per-split partial convs over the plan's K ranges, summed in rank
+    order, equal the plain version within 1e-6 (float32)."""
+    B, H, W, Cin, Cout = shape
+    x, w, _ = _inputs(*shape, seed=5)
+    xt, wt = torch.from_numpy(x), _oihw(w)
+    bias = torch.linspace(-0.2, 0.3, Cout)
+    plan = check_plan(B * H * W, Cin, Cout, torch.float32)
+    assert plan.splits > 1
+    _close(split_k_conv(xt, wt, plan, bias).numpy(), ops.conv3x3_plain(xt, wt, bias).numpy(), tol=1e-6)
+
+
+def test_build_digest_follows_shared_headers(tmp_path):
+    """`ops.nvcc.source_digest` (the build's cache key) changes with the
+    source, with any `*.cuh` beside it and with a new header, so an edit of
+    `conv3x3_core.cuh` rebuilds both libraries that include it."""
+    from conditional_score_diffusion_tpu_torch.ops import nvcc
+
+    (tmp_path / "a.cu").write_text('#include "core.cuh"\n')
+    (tmp_path / "b.cu").write_text('#include "core.cuh"\n// b\n')
+    (tmp_path / "core.cuh").write_text("// v1\n")
+    first = {n: nvcc.source_digest(n, tmp_path) for n in ("a", "b")}
+    assert first == {n: nvcc.source_digest(n, tmp_path) for n in ("a", "b")} and first["a"] != first["b"]
+    (tmp_path / "core.cuh").write_text("// v2\n")
+    second = {n: nvcc.source_digest(n, tmp_path) for n in ("a", "b")}
+    assert all(second[n] != first[n] for n in first)
+    (tmp_path / "extra.cuh").write_text("// new\n")
+    assert all(nvcc.source_digest(n, tmp_path) != second[n] for n in first)
+    assert nvcc.source_digest("conv3x3") != nvcc.source_digest("gn_silu_conv3x3")

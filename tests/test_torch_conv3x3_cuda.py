@@ -20,8 +20,15 @@ import torch.nn.functional as F
 from conditional_score_diffusion_tpu_torch.ops import conv3x3 as ops
 
 # (H, Cin, Cout) at B=16: the 160x160 convs (the input conv, the 96-channel
-# convs and the output conv), 80x80 with 192 in, 20x20 288 -> 192, 5x5.
-SHAPES = [(160, 6, 96), (160, 96, 96), (160, 96, 6), (80, 192, 96), (20, 288, 192), (5, 288, 288)]
+# convs and the output conv), 80x80 with 192 in, 20x20 288 -> 192, the 10x10
+# convs, 5x5 (split 8 ways).
+SHAPES = [(160, 6, 96), (160, 96, 96), (160, 96, 6), (80, 192, 96), (20, 288, 192), (10, 192, 288),
+          (10, 288, 288), (5, 288, 288)]
+# (B, H, W, Cin, Cout) off the flagship's widths: Cin = 6 and Cout = 6 on
+# ragged M (3 * 7 * 5 pixels), an odd channel count (one-element copies in
+# both operands), 4x4 images.
+SMALL_SHAPES = [(3, 7, 5, 6, 6), (3, 7, 5, 6, 40), (2, 9, 9, 13, 20), (16, 4, 4, 192, 192)]
+SPLIT_SHAPES = [(5, 288, 288), (10, 288, 192), (16, 128, 128)]
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -34,9 +41,9 @@ def device():
     return torch.device("cuda")
 
 
-def _inputs(h, cin, cout, dtype, device, seed):
+def _inputs(h, cin, cout, dtype, device, seed, batch=16, w=None):
     g = torch.Generator(device=device).manual_seed(seed)
-    x = (torch.randn(16, h, h, cin, generator=g, device=device) * 1.5 + 0.3).to(dtype)
+    x = (torch.randn(batch, h, w or h, cin, generator=g, device=device) * 1.5 + 0.3).to(dtype)
     w = (torch.randn(cout, cin, 3, 3, generator=g, device=device) / (9 * cin) ** 0.5).to(dtype)
     bias = 0.1 * torch.randn(cout, generator=g, device=device)
     return x, w, bias
@@ -58,6 +65,31 @@ def test_kernel_matches_plain(device, h, cin, cout, dtype):
     torch.cuda.synchronize()
     assert ops.conv3x3.launches == launches + 1
     _check(got, ops.conv3x3_plain(x, w, bias), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,cin,cout", SMALL_SHAPES)
+def test_kernel_matches_plain_off_the_flagship_widths(device, b, h, w, cin, cout, dtype):
+    x, wt, bias = _inputs(h, cin, cout, dtype, device, seed=cin * cout, batch=b, w=w)
+    _check(ops.conv3x3(x, wt, bias), ops.conv3x3_plain(x, wt, bias), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,cin,cout", SPLIT_SHAPES)
+def test_split_k_is_deterministic_and_agrees_unsplit(device, h, cin, cout, dtype, monkeypatch):
+    """A split shape: two launches are bit-identical (the cluster sums the
+    partial tiles in rank order), and the unsplit plan agrees within the
+    tolerance."""
+    x, w, bias = _inputs(h, cin, cout, dtype, device, seed=h + cin)
+    assert ops.launch_plan(16 * h * h, cin, cout, dtype).splits > 1
+    first, second = ops.conv3x3(x, w, bias), ops.conv3x3(x, w, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    monkeypatch.setattr(ops, "MAX_SPLITS", 1)
+    assert ops.launch_plan(16 * h * h, cin, cout, dtype).splits == 1
+    _check(first, ops.conv3x3(x, w, bias), dtype)
 
 
 @pytest.mark.cuda

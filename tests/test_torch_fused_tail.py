@@ -11,6 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
+from _torch_port_splitk import check_plan, split_k_conv
 
 from conditional_score_diffusion_tpu.ops import fused_block_pallas as jax_fused
 from conditional_score_diffusion_tpu_torch.ops import fused_tail
@@ -81,3 +83,91 @@ def test_wrapper_refuses_other_devices():
     g = torch.empty(32, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         fused_tail.gn_silu_conv3x3(x, w, g, g, 32)
+
+
+# ---- the launch plan and its split-K partition (csrc/conv3x3_core.cuh) --------
+
+
+def _sampler_tail_shapes():
+    """(B, H, C) of every tail call on the four sampler paths: the float32
+    flagship (17 a forward) and the bf16 block path (its 5 at 20x20) at B=8,
+    the NCSN++ block variant at B=8, the texture64 harness at B=16 (counted
+    on the meta device)."""
+    import chip_smoke
+
+    shapes = {(chip_smoke.BATCH, h, c) for h, c, *_ in chip_smoke.TAIL_SHAPES}
+    shapes |= {(chip_smoke.BATCH, h, c) for h, c in chip_smoke.NCSNPP_TAIL_SHAPES}
+    harness = chip_smoke.tail_call_shapes(chip_smoke.harness_config(""), chip_smoke.HARNESS_BATCH)
+    assert sum(harness.values()) == 17
+    shapes |= {(chip_smoke.HARNESS_BATCH, h, c) for h, c in harness}
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launch_plan_at_every_sampler_tail_shape(dtype):
+    shapes = _sampler_tail_shapes()
+    assert len(shapes) == 3 + 5 + 3  # the flagship's, NCSN++'s and the harness's distinct shapes
+    for B, h, c in shapes:
+        plan = check_plan(B * h * h, c, c, dtype)
+        assert plan.splits > 1 and plan.a_vec == 1 and plan.b_vec == 1, (B, h, c)
+
+
+# (B, H, Cin, Cout, groups): 4x4 images, a ragged M (3 * 5 * 5 = 75), Cout = 6.
+SPLIT_CASES = [(4, 4, 64, 64, 32), (3, 5, 48, 40, 16), (2, 6, 32, 6, 8)]
+
+
+@pytest.mark.parametrize("B,h,cin,cout,groups", SPLIT_CASES)
+def test_split_k_emulation_matches_plain(B, h, cin, cout, groups):
+    """The activation (float32 GroupNorm, SiLU) through per-split partial
+    convs over the plan's K ranges, summed in rank order, + bias + temb,
+    equals `gn_silu_conv3x3_plain` within 1e-6 (float32)."""
+    rng = np.random.RandomState(h + cin)
+    x = torch.from_numpy(rng.randn(B, h, h, cin).astype(np.float32) * 1.5 + 0.3)
+    w = torch.from_numpy((rng.randn(cout, cin, 3, 3) / np.sqrt(9 * cin)).astype(np.float32))
+    gamma, beta = (torch.from_numpy(v.astype(np.float32)) for v in (1 + 0.1 * rng.randn(cin), 0.1 * rng.randn(cin)))
+    bias, temb = torch.from_numpy(0.1 * rng.randn(cout).astype(np.float32)), torch.from_numpy(
+        rng.randn(B, cout).astype(np.float32))
+    mean, rstd = fused_tail.group_norm_stats(x, groups)
+    scale = rstd * gamma
+    act = F.silu(x * scale[:, None, None, :] + (beta - mean * scale)[:, None, None, :])
+    plan = check_plan(B * h * h, cin, cout, torch.float32)
+    assert plan.splits > 1
+    got = split_k_conv(act, w, plan, bias, temb)
+    want = fused_tail.gn_silu_conv3x3_plain(x, w, gamma, beta, groups, bias=bias, temb=temb)
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+def test_packed_weight_is_kept_per_weight_version():
+    """The tail's repacked (3, 3, Cin, Cout) weight is made once per weight
+    and made anew after an in-place update; the entry goes with the weight."""
+    import gc
+
+    from conditional_score_diffusion_tpu_torch.ops.conv3x3 import hwio
+
+    w = torch.randn(6, 4, 3, 3)
+    first = fused_tail._packed_weight(w)
+    assert fused_tail._packed_weight(w) is first and torch.equal(first, hwio(w))
+    with torch.no_grad():
+        w.mul_(2.0)
+    second = fused_tail._packed_weight(w)
+    assert second is not first and torch.equal(second, hwio(w))
+    key = id(w)
+    del w
+    gc.collect()
+    assert key not in fused_tail._PACKED
+
+
+def test_packed_weight_follows_a_module_conversion():
+    """`nn.Module.to` swaps a parameter's data in place (same object, same
+    version counter): the cached repack must not survive it."""
+    from conditional_score_diffusion_tpu_torch.ops.conv3x3 import hwio
+
+    conv = torch.nn.Conv2d(4, 6, 3)
+    w = conv.weight
+    first = fused_tail._packed_weight(w)
+    version = w._version
+    conv.to(torch.bfloat16)
+    assert conv.weight is w and w._version == version  # what a key on (id, version) alone would miss
+    second = fused_tail._packed_weight(conv.weight)
+    assert second.dtype == torch.bfloat16 and torch.equal(second, hwio(conv.weight))
+    assert first.dtype == torch.float32

@@ -13,10 +13,14 @@ another order than cuDNN's; TF32 is off on the plain side); bfloat16 2e-2
 import pytest
 import torch
 
-from conditional_score_diffusion_tpu_torch.ops import fused_tail
+from conditional_score_diffusion_tpu_torch.ops import conv3x3, fused_tail
 
-# The flagship sampler's gated tails: (H, C) at B=8, 32 groups.
-SHAPES = [(20, 192), (10, 288), (5, 288)]
+# The gated tails, 32 groups: (B, H, C): the flagship sampler's at B=8, the
+# texture64 harness's at B=16, the NCSN++ block variant's at B=8; and a
+# ragged M (3 x 5x5) with Cout = 6 (`CASES`, with its own groups).
+SHAPES = [(8, 20, 192), (8, 10, 288), (8, 5, 288), (16, 16, 128), (16, 8, 128), (16, 4, 192), (8, 20, 128),
+          (8, 10, 256), (8, 5, 256)]
+CASES = [(3, 5, 48, 6, 16), (3, 7, 32, 32, 8)]
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -29,32 +33,60 @@ def device():
     return torch.device("cuda")
 
 
-def _inputs(h, c, dtype, device, seed):
+def _inputs(h, c, dtype, device, seed, batch=8, cout=None):
+    cout = cout or c
     g = torch.Generator(device=device).manual_seed(seed)
-    x = (torch.randn(8, h, h, c, generator=g, device=device) * 1.5 + 0.3).to(dtype)
-    w = (torch.randn(c, c, 3, 3, generator=g, device=device) / (9 * c) ** 0.5).to(dtype)
+    x = (torch.randn(batch, h, h, c, generator=g, device=device) * 1.5 + 0.3).to(dtype)
+    w = (torch.randn(cout, c, 3, 3, generator=g, device=device) / (9 * c) ** 0.5).to(dtype)
     gamma = 1.0 + 0.1 * torch.randn(c, generator=g, device=device)
     beta = 0.1 * torch.randn(c, generator=g, device=device)
-    bias = 0.1 * torch.randn(c, generator=g, device=device)
-    temb = torch.randn(8, c, generator=g, device=device)
+    bias = 0.1 * torch.randn(cout, generator=g, device=device)
+    temb = torch.randn(batch, cout, generator=g, device=device)
     return x, w, gamma, beta, bias, temb
+
+
+def _check(got, want, dtype):
+    assert got.shape == want.shape and got.dtype == dtype
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= REL_TOL[dtype] * want.float().abs().max().item(), err
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_temb", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,c", SHAPES)
-def test_kernel_matches_plain(device, h, c, dtype, with_temb):
-    x, w, gamma, beta, bias, temb = _inputs(h, c, dtype, device, seed=h * c)
+@pytest.mark.parametrize("b,h,c", SHAPES)
+def test_kernel_matches_plain(device, b, h, c, dtype, with_temb):
+    x, w, gamma, beta, bias, temb = _inputs(h, c, dtype, device, seed=h * c, batch=b)
     temb = temb if with_temb else None
     launches = fused_tail.gn_silu_conv3x3.launches
     got = fused_tail.gn_silu_conv3x3(x, w, gamma, beta, 32, bias=bias, temb=temb)
     torch.cuda.synchronize()
     assert fused_tail.gn_silu_conv3x3.launches == launches + 1
-    want = fused_tail.gn_silu_conv3x3_plain(x, w, gamma, beta, 32, bias=bias, temb=temb)
-    assert got.shape == want.shape and got.dtype == dtype
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= REL_TOL[dtype] * want.float().abs().max().item(), err
+    _check(got, fused_tail.gn_silu_conv3x3_plain(x, w, gamma, beta, 32, bias=bias, temb=temb), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,cin,cout,groups", CASES)
+def test_kernel_matches_plain_off_the_model_widths(device, b, h, cin, cout, groups, dtype):
+    x, w, gamma, beta, bias, temb = _inputs(h, cin, dtype, device, seed=cin + cout, batch=b, cout=cout)
+    _check(fused_tail.gn_silu_conv3x3(x, w, gamma, beta, groups, bias=bias, temb=temb),
+           fused_tail.gn_silu_conv3x3_plain(x, w, gamma, beta, groups, bias=bias, temb=temb), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,c", [(8, 5, 288), (16, 8, 128), (8, 20, 192)])
+def test_split_k_is_deterministic_and_agrees_unsplit(device, b, h, c, dtype, monkeypatch):
+    """A split shape: two launches are bit-identical, and the unsplit plan
+    agrees within the tolerance."""
+    x, w, gamma, beta, bias, temb = _inputs(h, c, dtype, device, seed=c + h, batch=b)
+    assert conv3x3.launch_plan(b * h * h, c, c, dtype).splits > 1
+    first, second = (fused_tail.gn_silu_conv3x3(x, w, gamma, beta, 32, bias=bias, temb=temb) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    monkeypatch.setattr(conv3x3, "MAX_SPLITS", 1)
+    _check(first, fused_tail.gn_silu_conv3x3(x, w, gamma, beta, 32, bias=bias, temb=temb), dtype)
 
 
 @pytest.mark.cuda
