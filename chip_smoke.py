@@ -10,8 +10,9 @@ Phases, each printing its own line with its seconds:
    (both off: the port runs float32 as float32).
 2. build: builds the five kernel sources (csrc/gn_silu_conv3x3.cu,
    csrc/resblock_fused.cu, csrc/fir_resample.cu, csrc/conv3x3.cu,
-   csrc/fused_bias_act.cu; the first and fourth include the shared 3x3 main
-   loop csrc/conv3x3_core.cuh) with nvcc, in parallel, each with its seconds
+   csrc/fused_bias_act.cu; the first, second and fourth include the shared
+   3x3 main loop csrc/conv3x3_core.cuh, the first two the GroupNorm+SiLU
+   pass csrc/gn_silu_act.cuh) with nvcc, in parallel, each with its seconds
    and its ptxas lines.
 3. kernel: each kernel against its plain PyTorch version at the shapes its
    path gives it, float32 and bfloat16 (2e-2 of the largest magnitude;
@@ -36,7 +37,11 @@ Phases, each printing its own line with its seconds:
    its autograd input gradient against F.conv2d's at two shapes; kernel 5's
    (H, W, B, C) entry at two shapes.  The fused tail at the texture64
    harness's shapes (B=16: 16x16x128, 8x8x128, 4x4x192; counted on the meta
-   device), timed.  The fused bias + leaky ReLU (kernel 8) at (16, 64, 64,
+   device), timed.  The whole-resblock kernels at the trained texture64
+   model's block sites with fused_block on (B=16, 8x8 and 4x4; counted on
+   the meta device against `TEXTURE64_BLOCK_SHAPES`), float32 and
+   bfloat16, with and without temb, checked.  The fused bias + leaky ReLU
+   (kernel 8) at (16, 64, 64,
    64) and (8, 160, 160, 96) with a bias and the default slope and gain, and
    at (3, 5, 7, 6) without a bias and with slope 0.1, gain 1.0 (float32
    within 1e-6 of the largest magnitude, bfloat16 within two bfloat16 steps
@@ -51,8 +56,10 @@ Phases, each printing its own line with its seconds:
    network output on the clean batch; float32 at 1e-4, bfloat16 as
    `agreement` says (2e-2).  After the samplers, the train step with kernel
    4 on and off (`train_agreement`), and the trained texture64 EMA's score
-   with the fused tail on and off (`texture64_agreement`: float32 1e-4;
-   bfloat16 compute, the tail's tensor-core path, by norm 2e-2).
+   with the fused tail on and off, then with fused_block and fused_tail on
+   against both off (`texture64_agreement`: float32 1e-4; bfloat16 compute,
+   the tensor-core paths, by norm 2e-2; the block and tail launches of one
+   forward counted exactly).
 5. main (the flagship block path): texture160 test batch 0 (8 images, y =
    8x SR degradation), the full-width ddpm_paired with seeded N(0, 0.02)
    weights, bfloat16 compute through `get_score_fn(compute_dtype=...)` ->
@@ -188,6 +195,18 @@ NCSNPP_BLOCK_SHAPES = [
     ("resblock_fused_split", 5, 256, 256, 256),  # up_5_*
     ("resblock_fused_split", 10, 256, 256, 256),  # up_4_0, up_4_1
     ("resblock_fused_split", 10, 256, 128, 256),  # up_4_2: a 12-channel group straddles channel 256
+]
+# Kernels 2-3 at the sites of the trained texture64 model with fused_block
+# on (B=16; `texture64_agreement` runs it so): (kernel, H, Ca, Cb, Cout,
+# calls per forward), counted on the meta device by `block_call_shapes`.
+TEXTURE64_BLOCK_SHAPES = [
+    ("resblock_fused", 8, 128, 0, 128, 2),
+    ("resblock_fused", 4, 128, 0, 192, 1),  # NIN shortcut
+    ("resblock_fused", 4, 192, 0, 192, 3),
+    ("resblock_fused_split", 4, 192, 192, 192, 2),
+    ("resblock_fused_split", 4, 192, 128, 192, 1),  # a 10-channel group straddles channel 192
+    ("resblock_fused_split", 8, 192, 128, 128, 1),
+    ("resblock_fused_split", 8, 128, 128, 128, 2),
 ]
 # FIR calls of one NCSN++ forward, B=8: (kernel, H, C, calls).  Down: each
 # BigGAN down block resamples h and x, the input pyramid its 6 channels;
@@ -409,17 +428,17 @@ def check_tail():
 # ---- the whole-resblock kernels ------------------------------------------
 
 
-def block_inputs(h, ca, cb, cout, dtype, seed, with_temb=True):
+def block_inputs(h, ca, cb, cout, dtype, seed, with_temb=True, batch=BATCH):
     """Seeded inputs of one block call, as the model hands them over."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
     cin = ca + cb
-    x = (r(BATCH, h, h, ca) * 1.5 + 0.3).to(dtype)
-    skip = (r(BATCH, h, h, cb) - 0.5).to(dtype) if cb else None
+    x = (r(batch, h, h, ca) * 1.5 + 0.3).to(dtype)
+    skip = (r(batch, h, h, cb) - 0.5).to(dtype) if cb else None
     kw = dict(
         gamma0=1.0 + 0.1 * r(cin), beta0=0.1 * r(cin), num_groups0=GROUPS,
         w0=(r(cout, cin, 3, 3) / math.sqrt(9 * cin)).to(dtype), b0=0.1 * r(cout),
-        temb_proj=r(BATCH, cout) if with_temb else None,
+        temb_proj=r(batch, cout) if with_temb else None,
         gamma1=1.0 + 0.1 * r(cout), beta1=0.1 * r(cout), num_groups1=GROUPS,
         w1=(r(cout, cout, 3, 3) / math.sqrt(9 * cout)).to(dtype), b1=0.1 * r(cout),
         shortcut_w=(r(cin, cout) / math.sqrt(cin)).to(dtype) if cin != cout else None,
@@ -491,6 +510,54 @@ def check_blocks():
                 )
                 rows.append(row)
     return rows
+
+
+def block_call_shapes(config, batch, inputs=None):
+    """Counter of the whole-block kernels' calls in one eval forward of
+    ``config``'s model on the meta device, by (kernel, H, Ca, Cb, Cout);
+    ``inputs`` the model's {"x", "y"} on the meta device (default: both
+    square at the recipe's image size)."""
+    calls = collections.Counter()
+
+    def record(name):
+        def fn(x, *args, **kwargs):
+            cb = args[0].shape[-1] if name == "resblock_fused_split" else 0
+            calls[(name, x.shape[1], x.shape[-1], cb, kwargs["w0"].shape[0])] += 1
+            return torch.empty(*x.shape[:-1], kwargs["w0"].shape[0], device=x.device, dtype=x.dtype)
+
+        return fn
+
+    real = {name: getattr(layers, name) for name in ("resblock_fused", "resblock_fused_split", "gn_silu_conv3x3")}
+    layers.resblock_fused = record("resblock_fused")
+    layers.resblock_fused_split = record("resblock_fused_split")
+    layers.gn_silu_conv3x3 = lambda x, w, *a, **k: torch.empty(*x.shape[:-1], w.shape[0], device=x.device,
+                                                               dtype=x.dtype)
+    try:
+        model = create_model(config, "meta")
+        if inputs is None:
+            s = config.data.image_size
+            inputs = dict.fromkeys(("x", "y"), torch.empty(batch, s, s, 3, device="meta"))
+        with torch.no_grad():
+            model(inputs, torch.empty(batch, device="meta"))
+    finally:
+        for name, fn in real.items():
+            setattr(layers, name, fn)
+    return calls
+
+
+def check_texture64_blocks():
+    """The block and split kernels against plain at the trained texture64
+    model's sites (B=16; a NIN shortcut, and a 10-channel group straddling
+    the concat at 4x4 192+128), float32 and bfloat16, with and without
+    temb; checked, not timed: no main path runs them."""
+    for name, h, ca, cb, cout, _ in TEXTURE64_BLOCK_SHAPES:
+        label = f"texture64 {name} {HARNESS_BATCH}x{h}x{h}x{ca}" + (f"+{cb}" if cb else "") + f"->{cout}"
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_temb in (True, False):
+                x, skip, kw = block_inputs(h, ca, cb, cout, dtype, seed=h * (ca + cb) + 2, with_temb=with_temb,
+                                           batch=HARNESS_BATCH)
+                check_close(f"{label} {dname(dtype)} temb={with_temb}",
+                            block_call(x, skip, kw), block_call(x, skip, kw, plain=True), dtype)
 
 
 def check_ncsnpp_sites():
@@ -1144,12 +1211,20 @@ def texture64_agreement(config):
     test batch 0 at t = 0.5 (x_t and y_t drawn from the SDE's marginals):
     float32 at `TEXTURE64_AGREE_TOL` of its largest magnitude; bfloat16
     compute (the tail's tensor-core path, 17 launches) by norm at
-    `BF16_AGREE_TOL`, as `agreement` holds the random-weight paths."""
+    `BF16_AGREE_TOL`, as `agreement` holds the random-weight paths.  Then
+    the same with `fused_block` and `fused_tail` both on against both off
+    (the recipe leaves `fused_block` unset, as JAX's does): the block
+    kernels at the 8x8 and 4x4 levels, `TEXTURE64_BLOCK_SHAPES`, on
+    trained weights."""
     t = time.perf_counter()
     model, step = load_model(config, "cuda")
     off_config = copy.deepcopy(config)
     off_config.model.fused_tail = False
     model_off, _ = load_model(off_config, "cuda")
+    block_config = copy.deepcopy(config)
+    block_config.model.fused_block = True
+    model_block, _ = load_model(block_config, "cuda")
+    block_names = ("resblock_fused", "resblock_fused_split", "gn_silu_conv3x3")
     sde, _ = build_sde(config)
     batch = {k: torch.from_numpy(v).cuda() for k, v in next(iter_test_batches(config)).items()}
     vec_t = torch.full((HARNESS_BATCH,), 0.5, device="cuda")
@@ -1165,6 +1240,11 @@ def texture64_agreement(config):
         on_bf16 = score_fn(model, sde, torch.bfloat16)(x_t, y_t, vec_t)
         bf16_launches = fused_tail.gn_silu_conv3x3.launches - launches
         off_bf16 = score_fn(model_off, sde, torch.bfloat16)(x_t, y_t, vec_t)
+        block_scores, block_launches = {}, {}
+        for dtype in (None, torch.bfloat16):
+            before = {n: WRAPPERS[n].launches for n in block_names}
+            block_scores[dtype] = score_fn(model_block, sde, dtype)(x_t, y_t, vec_t)
+            block_launches[dtype] = {n: WRAPPERS[n].launches - before[n] for n in block_names}
     err, err_bf16 = rel_err(on, off), norm_rel_err(on_bf16, off_bf16)
     ok = err <= TEXTURE64_AGREE_TOL and bool(torch.isfinite(on).all())
     ok_bf16 = err_bf16 <= BF16_AGREE_TOL and bool(torch.isfinite(on_bf16).all()) and bf16_launches == 17
@@ -1173,10 +1253,31 @@ def texture64_agreement(config):
                           f" ({bf16_launches} tail launches, the tensor-core path): by norm {err_bf16:.3e}, rel err"
                           f" {rel_err(on_bf16, off_bf16):.3e} (tol by norm {BF16_AGREE_TOL:.0e})"
                           f" {'ok' if ok_bf16 else 'FAIL'}")
+    expected = {"resblock_fused": 0, "resblock_fused_split": 0}
+    for name, *_, calls in TEXTURE64_BLOCK_SHAPES:
+        expected[name] += calls
+    expected["gn_silu_conv3x3"] = 17 - sum(expected.values())  # the tails at 16x16 stay
+    err_block = rel_err(block_scores[None], off)
+    err_block_bf16 = norm_rel_err(block_scores[torch.bfloat16], off_bf16)
+    ok_block = (err_block <= TEXTURE64_AGREE_TOL and bool(torch.isfinite(block_scores[None]).all())
+                and block_launches[None] == expected)
+    ok_block_bf16 = (err_block_bf16 <= BF16_AGREE_TOL and bool(torch.isfinite(block_scores[torch.bfloat16]).all())
+                     and block_launches[torch.bfloat16] == expected)
+    phase("agreement", t, f"texture64 trained EMA: score with fused_block and fused_tail on vs both off, float32"
+                          f" (launches {block_launches[None]}, expected {expected}): rel err {err_block:.3e} (tol"
+                          f" {TEXTURE64_AGREE_TOL:.0e}) {'ok' if ok_block else 'FAIL'}; bfloat16 compute (launches"
+                          f" {block_launches[torch.bfloat16]}): by norm {err_block_bf16:.3e}, rel err"
+                          f" {rel_err(block_scores[torch.bfloat16], off_bf16):.3e} (tol by norm {BF16_AGREE_TOL:.0e})"
+                          f" {'ok' if ok_block_bf16 else 'FAIL'}")
     if not (ok and ok_bf16):
         raise RuntimeError("texture64: the fused tail disagrees with the unfused path on the trained weights")
+    if not (ok_block and ok_block_bf16):
+        raise RuntimeError("texture64: the block kernels disagree with the unfused path on the trained weights")
     return dict(path="texture64 trained EMA, fused tail", tol=TEXTURE64_AGREE_TOL, score_rel_err=err,
-                bfloat16=dict(tol=BF16_AGREE_TOL, score_norm_rel_err=err_bf16, tail_launches=bf16_launches))
+                bfloat16=dict(tol=BF16_AGREE_TOL, score_norm_rel_err=err_bf16, tail_launches=bf16_launches),
+                fused_block=dict(score_rel_err=err_block, launches=block_launches[None],
+                                 bfloat16=dict(score_norm_rel_err=err_block_bf16,
+                                               launches=block_launches[torch.bfloat16])))
 
 
 def psnr_without_quantization(config, draw):
@@ -1311,6 +1412,12 @@ def main() -> int:
     conv_rows, hmajor_rows = check_conv(shapes)
     harness_tails = tail_call_shapes(harness_config(""), HARNESS_BATCH)
     harness_tail_rows = check_harness_tails(harness_tails)
+    t64_blocks = harness_config("")
+    t64_blocks.model.fused_block = True
+    t64_sites = block_call_shapes(t64_blocks, HARNESS_BATCH)
+    if t64_sites != {(name, *shape): calls for name, *shape, calls in TEXTURE64_BLOCK_SHAPES}:
+        raise RuntimeError(f"texture64 block sites {dict(t64_sites)}, expected {TEXTURE64_BLOCK_SHAPES}")
+    check_texture64_blocks()
     act_rows = check_fused_act()
     phase("kernel", t, "every kernel agrees with its plain version at every shape; the harness's tail calls per"
                        f" forward {dict(sorted(harness_tails.items()))}")

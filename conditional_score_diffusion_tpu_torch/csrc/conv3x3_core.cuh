@@ -1,6 +1,6 @@
 // The 3x3 SAME stride-1 implicit-GEMM main loop shared by csrc/conv3x3.cu
-// (TPU kernels 4 and 5) and csrc/gn_silu_conv3x3.cu (TPU kernel 1), for
-// sm_90a.
+// (TPU kernels 4 and 5), csrc/gn_silu_conv3x3.cu (TPU kernel 1) and
+// csrc/resblock_fused.cu (TPU kernels 2 and 3), for sm_90a.
 //
 //   out[m, n] = bias[n] (+ temb[b(m), n]) + sum_k A[m, k] * B[k, n]
 //   M = B*H*W pixels of all images, packed (no per-image tile, so 4x4, 5x5
@@ -41,6 +41,15 @@
 // distributed shared memory in rank order 0..splits-1 (deterministic, one
 // launch, no scratch), adds bias and temb once, and stores.  Unsplit tiles
 // take the same epilogue on their own shared memory.
+//
+// Two template arguments serve the whole resblock and leave the other
+// entries' kernels as they were: OutT, the output's type (the block's conv0
+// stores float32 h from a bfloat16 loop), and the parameter's type,
+// FoldProblem for the block's conv1: K runs on past the 9 taps into a
+// tenth, centred tap that reads the block's input at the output pixel (the
+// channel-mix shortcut, against its rows of B, in the same accumulator),
+// and the epilogue adds the shortcut bias and the identity residual and
+// applies the rescale.
 //
 // Indices are 32-bit: the wrappers refuse tensors of 2**31 elements or more.
 
@@ -162,6 +171,23 @@ struct Problem {
   int xsb, xsh, xsw, osb, osh, osw;  // element strides of (b, h, w); channels contiguous
   int a_vec, b_vec;  // 16-byte copies of A along channels, of B along output channels
   int K, splits, nchunks;  // set by launch_gemm
+};
+
+// The whole-resblock's conv1, the kernel's parameter where it folds the
+// shortcut (kFold): with `mix`, K runs on past the 9 taps into a tenth,
+// centred tap of Ca + Cb channels, cat(ra, rb) at the output pixel (NHWC,
+// rb null where Cb is 0), against the shortcut's rows of B; without it the
+// epilogue adds cat(ra, rb)[m, n] (the identity residual).  bias2 (Cout,)
+// or null joins bias, and the sum is scaled by res_scale.  A type of its
+// own, so the other kernels keep their parameter: with these fields
+// appended to Problem, nvcc compiled the other kernels into other code
+// (slower at Cin = 6); with them here, their SASS is unchanged.
+struct FoldProblem : Problem {
+  const void* ra;
+  const void* rb;
+  int Ca, Cb, mix;
+  const float* bias2;
+  float res_scale;
 };
 
 // What both C entries check first: positive sizes, 32-bit indices.
@@ -346,6 +372,58 @@ struct ARows {
   }
 };
 
+// The same for the whole-resblock's conv1 (kFold): k past the 9 taps is the
+// tenth, centred tap (see FoldProblem), which steps through its Ca + Cb
+// channels without wrapping; a chunk may hold both.  U also divides Ca and
+// Cb.
+template <class C>
+struct ARowsFold : ARows<C> {
+  using Base = ARows<C>;
+  int pix[Base::RPT];  // the row's pixel, -1 past M
+
+  __device__ __forceinline__ void init(const Problem& p, int m0) {
+    Base::init(p, m0);
+#pragma unroll
+    for (int r = 0; r < Base::RPT; ++r) {
+      const int m = m0 + this->row0 + r * kThreads;
+      pix[r] = m < p.M ? m : -1;
+    }
+  }
+
+  template <int U, typename T>
+  __device__ __forceinline__ void load(const FoldProblem& p, int chunk, T* As) const {
+    const T* xp = static_cast<const T*>(p.x);
+    const T* ra = static_cast<const T*>(p.ra);
+    const T* rb = static_cast<const T*>(p.rb);
+    const int k = chunk * C::BK + this->kseg;
+    int tap = min(k / p.Cin, 9), c = k - tap * p.Cin;
+#pragma unroll
+    for (int e = 0; e < Base::KPT; e += U) {
+      const bool kin = k + e < p.K;
+      T* dst = As + this->row0 * C::A_LD + this->kseg + e;
+      if (tap == 9) {
+#pragma unroll
+        for (int r = 0; r < Base::RPT; ++r) {
+          const bool valid = kin && pix[r] >= 0;
+          const T* src = !valid ? xp : c < p.Ca ? ra + pix[r] * p.Ca + c : rb + pix[r] * p.Cb + (c - p.Ca);
+          copy_unit<U * sizeof(T)>(dst + r * kThreads * C::A_LD, src, valid);
+        }
+      } else {
+        const int ty = tap / 3, dy = ty - 1, dx = tap - ty * 3 - 1;
+        const int off = dy * p.xsh + dx * p.xsw + c;
+#pragma unroll
+        for (int r = 0; r < Base::RPT; ++r) {
+          const bool valid = kin && static_cast<unsigned>(this->y[r] + dy) < static_cast<unsigned>(p.H) &&
+                             static_cast<unsigned>(this->x[r] + dx) < static_cast<unsigned>(p.W);
+          copy_unit<U * sizeof(T)>(dst + r * kThreads * C::A_LD, valid ? xp + this->base[r] + off : xp, valid);
+        }
+      }
+      c += U;
+      if (c >= p.Cin && tap < 9) c = 0, ++tap;
+    }
+  }
+};
+
 template <class C, int U>
 struct BLoader {
   static constexpr int NG = C::BN / U;  // n groups per k row
@@ -375,8 +453,11 @@ struct Units {
 
 // ---- the kernel ---------------------------------------------------------------
 
-template <class C>
-__global__ void __launch_bounds__(kThreads, C::kMinBlocks) conv3x3_gemm(const Problem p) {
+// OutT: the output's type, T's or (the whole-resblock's conv0 in bfloat16)
+// float32.  P: Problem, or FoldProblem for the whole-resblock's conv1.
+template <class C, typename OutT, class P>
+__global__ void __launch_bounds__(kThreads, C::kMinBlocks) conv3x3_gemm(const P p) {
+  constexpr bool kFold = std::is_same<P, FoldProblem>::value;
   using T = typename C::T;
   using M_ = Math<C>;
   constexpr int VEC = Units<T>::kVec;
@@ -389,7 +470,7 @@ __global__ void __launch_bounds__(kThreads, C::kMinBlocks) conv3x3_gemm(const Pr
   const int c_begin = split * p.nchunks / p.splits, c_end = (split + 1) * p.nchunks / p.splits;
   const int nk = c_end - c_begin;
 
-  ARows<C> rows;
+  typename std::conditional<kFold, ARowsFold<C>, ARows<C>>::type rows;
   rows.init(p, m0);
   auto load_stage = [&](int slot, int chunk) {
     T* a = As + slot * C::BM * C::A_LD;
@@ -421,7 +502,8 @@ __global__ void __launch_bounds__(kThreads, C::kMinBlocks) conv3x3_gemm(const Pr
   __syncthreads();
 
   // Epilogue: the partial tile to shared memory, then row slice `split` of
-  // the sum over the cluster's tiles, rank by rank, + bias + temb.
+  // the sum over the cluster's tiles, rank by rank, + bias + temb (kFold:
+  // + bias + bias2, + the identity residual, x res_scale).
   float* tile = reinterpret_cast<float*>(smem);
   M_::store(acc, tile);
   cg::cluster_group cluster = cg::this_cluster();
@@ -433,7 +515,7 @@ __global__ void __launch_bounds__(kThreads, C::kMinBlocks) conv3x3_gemm(const Pr
   const int slice = (C::BM + p.splits - 1) / p.splits;
   const int r0 = split * slice, r1 = min(C::BM, r0 + slice);
   const int HW = p.H * p.W;
-  T* out = static_cast<T*>(p.out);
+  OutT* out = static_cast<OutT*>(p.out);
   const bool vec_out = p.Cout % 4 == 0;
   for (int idx = threadIdx.x; idx < (r1 - r0) * NQ; idx += kThreads) {
     const int r = r0 + idx / NQ, q = (idx % NQ) * 4;
@@ -451,16 +533,27 @@ __global__ void __launch_bounds__(kThreads, C::kMinBlocks) conv3x3_gemm(const Pr
     for (int rank = 0; rank < kMaxSplits; ++rank)
       if (rank < p.splits) s.x += part[rank].x, s.y += part[rank].y, s.z += part[rank].z, s.w += part[rank].w;
     const int b = m / HW, rem = m - b * HW;
-    T* o = out + b * p.osb + (rem / p.W) * p.osh + (rem % p.W) * p.osw + n;
+    OutT* o = out + b * p.osb + (rem / p.W) * p.osh + (rem % p.W) * p.osw + n;
     float v[4] = {s.x, s.y, s.z, s.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       if (n + e >= p.Cout) break;
-      if (p.bias != nullptr) v[e] += p.bias[n + e];
-      if (p.temb != nullptr) v[e] += p.temb[b * p.Cout + n + e];
+      if constexpr (kFold) {
+        const int ch = n + e;
+        v[e] += p.bias[ch] + (p.bias2 != nullptr ? p.bias2[ch] : 0.f);
+        if (!p.mix) {
+          const T* ra = static_cast<const T*>(p.ra);
+          const T* rb = static_cast<const T*>(p.rb);
+          v[e] += Cvt<T>::to_f(ch < p.Ca ? ra[m * p.Ca + ch] : rb[m * p.Cb + (ch - p.Ca)]);
+        }
+        v[e] *= p.res_scale;
+      } else {
+        if (p.bias != nullptr) v[e] += p.bias[n + e];
+        if (p.temb != nullptr) v[e] += p.temb[b * p.Cout + n + e];
+      }
     }
     if (vec_out) {
-      if constexpr (sizeof(T) == 4) {
+      if constexpr (sizeof(OutT) == 4) {
         *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
       } else {
         __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]), hi = __floats2bfloat162_rn(v[2], v[3]);
@@ -472,7 +565,7 @@ __global__ void __launch_bounds__(kThreads, C::kMinBlocks) conv3x3_gemm(const Pr
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (n + e < p.Cout) o[e] = Cvt<T>::from_f(v[e]);
+        if (n + e < p.Cout) o[e] = Cvt<OutT>::from_f(v[e]);
     }
   }
   if (p.splits > 1) cluster.sync();  // no block leaves while another reads its tile
@@ -493,14 +586,17 @@ bool plan_matches(const Plan& plan) {
 
 // One launch of the main loop: grid (M tiles x splits, N tiles), clusters of
 // `splits` blocks along x.  Returns a cudaError_t.
-template <class C>
-int launch_gemm(Problem p, const Plan& plan, cudaStream_t stream) {
+template <class C, typename OutT, class P>
+int launch_gemm(P p, const Plan& plan, cudaStream_t stream) {
   if (!plan_matches<C>(plan)) return static_cast<int>(cudaErrorInvalidValue);
   p.K = 9 * p.Cin;
+  if constexpr (std::is_same<P, FoldProblem>::value) {
+    if (p.mix) p.K += p.Ca + p.Cb;
+  }
   p.nchunks = (p.K + C::BK - 1) / C::BK;
   p.splits = plan.splits;
   if (p.splits > p.nchunks) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = conv3x3_gemm<C>;
+  auto kernel = conv3x3_gemm<C, OutT, P>;
   constexpr int smem = Smem<C>::kBytes;
   static unsigned long long attribute_set = 0;  // once per instantiation and device (bit = ordinal)
   int device = 0;
@@ -529,22 +625,23 @@ int launch_gemm(Problem p, const Plan& plan, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dispatch on the tile width to the compiled configurations of T.
-template <typename T>
-int launch_typed(const Problem& p, const Plan& plan, cudaStream_t stream) {
+// Dispatch on the tile width to the compiled configurations of T (OutT
+// and P as for conv3x3_gemm).
+template <typename T, typename OutT = T, class P = Problem>
+int launch_typed(const P& p, const Plan& plan, cudaStream_t stream) {
   if constexpr (std::is_same<T, float>::value) {
     switch (plan.bn) {
-      case 96: return launch_gemm<CfgF32<96>>(p, plan, stream);
-      case 64: return launch_gemm<CfgF32<64>>(p, plan, stream);
-      case 8: return launch_gemm<CfgF32<8>>(p, plan, stream);
+      case 96: return launch_gemm<CfgF32<96>, OutT, P>(p, plan, stream);
+      case 64: return launch_gemm<CfgF32<64>, OutT, P>(p, plan, stream);
+      case 8: return launch_gemm<CfgF32<8>, OutT, P>(p, plan, stream);
       default: break;
     }
   } else {
     switch (plan.bn) {
-      case 128: return launch_gemm<CfgBF16<64, 128>>(p, plan, stream);
-      case 96: return launch_gemm<CfgBF16<64, 96>>(p, plan, stream);
-      case 64: return launch_gemm<CfgBF16<128, 64>>(p, plan, stream);
-      case 16: return launch_gemm<CfgBF16<128, 16>>(p, plan, stream);
+      case 128: return launch_gemm<CfgBF16<64, 128>, OutT, P>(p, plan, stream);
+      case 96: return launch_gemm<CfgBF16<64, 96>, OutT, P>(p, plan, stream);
+      case 64: return launch_gemm<CfgBF16<128, 64>, OutT, P>(p, plan, stream);
+      case 16: return launch_gemm<CfgBF16<128, 16>, OutT, P>(p, plan, stream);
       default: break;
     }
   }

@@ -15,364 +15,132 @@
 //   res = x (identity) or x @ ws (channel mix), float32 sums
 //   out = (res + h1) * res_scale                          rounded to T once
 //
-// x, skip and out are NHWC, w0/w1 OIHW (PyTorch's conv layout), ws (Cin,
-// Cout); x, skip, w0, w1, ws and out are all float32 or all bfloat16 (T);
-// gamma/beta/b0/temb/b1/bs are float32.  As in the TPU kernel, GroupNorm
-// statistics are float32, each activation is rounded to T before its conv,
-// every sum is float32, and h stays float32 between conv0 and GN1.
+// x, skip and out are NHWC; x, skip, the packed weights and out are all
+// float32 or all bfloat16 (T); gamma/beta/b0/temb/b1/bs are float32.  As in
+// the TPU kernel, GroupNorm statistics are float32, each activation is
+// rounded to T before its conv, every sum is float32, and h stays float32
+// between conv0 and GN1.  The weights come packed by the host, once per
+// weight: w0 as (3, 3, Cin, Cout); w1 as (3, 3, Cout, Cout) with, for a
+// channel-mix shortcut, ws (Cin, Cout) stacked under it along K.
 //
-// Four launches on the caller's stream, no allocation (the wrapper passes a
-// float32 scratch of 2*B*Cin + 2*B*Cout + B*H*W*Cout):
-//   1. gn_stats over x (and skip): one block per (batch, group) takes the
-//      group's mean and variance in two float32 passes, reading each channel
-//      from the half it lies in, so a group that straddles the concat
-//      boundary is exact; it folds GroupNorm's affine into one scale/shift
-//      per (batch, channel).
-//   2. conv3x3_act, conv0: an implicit GEMM with M = B*H*W pixels (across
-//      images), N = Cout, K = 9*Cin.  A block owns 32 pixels x 32 output
-//      channels; for each chunk of 16 input channels it gathers the nine
-//      taps' activations silu(x*scale+shift) of its pixels into shared
-//      memory (0 outside the image: SAME padding applies to the activation),
-//      stages the chunk's weights, and accumulates in float32 registers,
-//      4 pixels x 4 channels a thread.  Out: float32 h.
-//   3. gn_stats over h.
-//   4. conv3x3_act, conv1 with the residual: the same GEMM over silu(GN1(h)),
-//      then (channel mix) one more K loop over x's channels against ws into
-//      a second accumulator, then the residual, the bias and the scale.
+// Four launches on the caller's stream, no allocation (the wrapper passes
+// the scratch a0, h, a1):
+//   1. gn_silu_act (csrc/gn_silu_act.cuh) over cat(x, skip): one block per
+//      (batch, group), float32 statistics in two passes, each channel read
+//      from the half it lies in (a group that straddles channel Ca is
+//      exact); writes a0 = silu(GN0(.)) in T once per element.
+//   2. conv0 on the 3x3 main loop of csrc/conv3x3_core.cuh: M = B*H*W pixels
+//      of all images, K = 9*Cin, N = Cout; epilogue + b0 + temb[b], stored
+//      as float32 h.
+//   3. gn_silu_act over h (float32 in, T out): a1 = silu(GN1(h)).
+//   4. conv1 on the main loop with the shortcut folded into K: K = 9*Cout,
+//      plus, for the channel mix, Ca + Cb more columns that read cat(x,
+//      skip) at the output pixel (a tenth, centred tap) against ws's rows
+//      of the packed B, so one accumulator holds conv1 + mix.  Epilogue:
+//      + b1 (+ bs), + cat(x, skip)[m, n] for the identity residual, x
+//      res_scale, rounded to T.
 //
-// What bounds it on an H100: at the flagship sampler's shapes (B=8; 10x10
+// What bounds it on an H100: at the flagship sampler's sites (B=8; 10x10
 // and 5x5, 192-576 channels in, 288 out) the work is 2*9*B*H*W*(Cin+Cout)*
-// Cout (+ 2*B*H*W*Cin*Cout for a mix shortcut) operations on ~1-4 MB of
-// data, so it is bound by operations.  This first version keeps the sums on
-// the CUDA cores in float32 for both types, and fills the card only partly:
-// a 5x5 block gives 7 x 9 = 63 blocks of 64 threads.  Keeping h in shared
-// memory in one persistent launch (clusters, DSMEM) and moving the convs onto
-// mma/wgmma are later work; its times are in PERF.md.
+// Cout (+ 2*B*H*W*Cin*Cout for a mix shortcut) operations, 0.6-3.4 GFLOP,
+// on ~1-4 MB of data: bound by operations on paper (a few microseconds on
+// the tensor cores in bfloat16, 10-50 us on the CUDA cores in float32), in
+// practice by filling 132 SMs with 200-800 pixels and by the fixed cost of
+// four dependent launches.  An earlier version of this file ran 31x slower
+// than cuDNN's convs in bfloat16: 63 blocks of 64 threads at 5x5, the
+// activation recomputed for every tap and N tile, bfloat16 summed on the
+// CUDA cores, synchronous scalar loads, the shortcut a second K loop.  This
+// design puts both convs on the main loop that the 3x3 conv and the fused
+// tail share: all pixels packed into M, K split over a thread-block cluster
+// and reduced in rank order through distributed shared memory where the
+// tiles are fewer than the SMs (deterministic, no float atomics), cp.async
+// with 16-byte copies, mma.sync with float32 accumulators in bfloat16; each
+// activation is computed once, by a GroupNorm pass, and the shortcut costs
+// K chunks.  Measured so (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W),
+// a call at those sites takes 1.06-1.33x cuDNN's two convs and the
+// shortcut's matmul in bfloat16 and 0.52-0.87x in float32: in bfloat16 the
+// two GroupNorm passes and the four dependent launches are what the
+// library's bare convs do not pay.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "conv3x3_core.cuh"
+#include "gn_silu_act.cuh"
 
 namespace {
 
-constexpr float kEps = 1e-6f;       // GroupNorm epsilon of the DDPM resblock
-constexpr int kTM = 32;             // output pixels per block
-constexpr int kTN = 32;             // output channels per block
-constexpr int kKC = 16;             // input channels per staged chunk
-constexpr int kThreads = 64;        // (kTM / 4) x (kTN / 4): 4 x 4 outputs a thread
-// Shared-memory strides in floats: multiples of 4 keep the float4 reads
-// aligned; the +4 pads move each channel row and each tap onto other banks.
-constexpr int kAStride = kTM + 4;
-constexpr int kBStride = kTN + 4;
-constexpr int kTapStride = kKC * kAStride + 4;  // == kKC * kBStride + 4
-constexpr int kStatsThreads = 256;
-
-static_assert(kAStride == kBStride, "one tap stride serves both tiles");
-static_assert(kThreads == (kTM / 4) * (kTN / 4), "4 x 4 outputs a thread");
-static_assert(kKC * 9 % 8 == 0, "weight staging reads 8 values a row");
-
 template <typename T>
-struct Cvt;
-
-template <>
-struct Cvt<float> {
-  static __device__ __forceinline__ float to_f(float v) { return v; }
-  static __device__ __forceinline__ float from_f(float v) { return v; }
-};
-
-template <>
-struct Cvt<__nv_bfloat16> {
-  static __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-  static __device__ __forceinline__ __nv_bfloat16 from_f(float v) { return __float2bfloat16(v); }
-};
-
-// Sum over the block; every thread gets the total.  blockDim.x is a multiple
-// of 32 and at most 1024.
-__device__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // red may still be read by a previous call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
-  for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
-  return t;
-}
-
-// Channel c of pixel pix of the virtual concat cat(xa, xb).
-template <typename Tin, bool kSplit>
-__device__ __forceinline__ float concat_at(const Tin* __restrict__ xa, const Tin* __restrict__ xb,
-                                           int Ca, int Cb, size_t pix, int c) {
-  if (kSplit && c >= Ca) return Cvt<Tin>::to_f(xb[pix * Cb + (c - Ca)]);
-  return Cvt<Tin>::to_f(xa[pix * Ca + c]);
-}
-
-// GroupNorm of cat(xa, xb) (Cb = 0: xa alone) as scale/shift per (b, c):
-// GN(v) = v * scale + shift.  One block per (batch, group).
-template <typename Tin, bool kSplit>
-__global__ void __launch_bounds__(kStatsThreads)
-gn_stats(const Tin* __restrict__ xa, const Tin* __restrict__ xb, int Ca, int Cb,
-         const float* __restrict__ gamma, const float* __restrict__ beta,
-         float* __restrict__ scale, float* __restrict__ shift, int HW, int G) {
-  __shared__ float red[32];
-  const int C = Ca + Cb;
-  const int b = blockIdx.x / G, g = blockIdx.x % G;
-  const int cpg = C / G;
-  const int n = HW * cpg;
-  const size_t pix0 = (size_t)b * HW;
-
-  float s = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    s += concat_at<Tin, kSplit>(xa, xb, Ca, Cb, pix0 + i / cpg, g * cpg + i % cpg);
-  const float mean = block_sum(s, red) / n;
-
-  float q = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float d = concat_at<Tin, kSplit>(xa, xb, Ca, Cb, pix0 + i / cpg, g * cpg + i % cpg) - mean;
-    q += d * d;
-  }
-  const float rstd = rsqrtf(block_sum(q, red) / n + kEps);
-
-  for (int c = threadIdx.x; c < cpg; c += blockDim.x) {
-    const int ch = g * cpg + c;
-    const float sc = rstd * gamma[ch];
-    scale[(size_t)b * C + ch] = sc;
-    shift[(size_t)b * C + ch] = beta[ch] - mean * sc;
-  }
-}
-
-__device__ __forceinline__ void fma4x4(float (&acc)[4][4], const float4 a, const float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    acc[i][0] = fmaf(av[i], b.x, acc[i][0]);
-    acc[i][1] = fmaf(av[i], b.y, acc[i][1]);
-    acc[i][2] = fmaf(av[i], b.z, acc[i][2]);
-    acc[i][3] = fmaf(av[i], b.w, acc[i][3]);
-  }
-}
-
-// 3x3 SAME conv of silu(src * scale + shift), src = cat(xa, xb) of Tin
-// (T for conv0, float32 h for conv1), the activation rounded to T.
-//   kLast = false (conv0): out (float32) = acc + (bias[o] + bias2[b, o])
-//     with bias2 = temb (B, Cout), or nothing when null.
-//   kLast = true (conv1): out (T) = (res + (acc + (bias[o] + bias2[o]))) *
-//     res_scale with bias2 = the shortcut bias (Cout) or null, and res =
-//     cat(ra, rb) @ ws when ws is given, else cat(ra, rb)[o] (Ra + Rb = Cout).
-template <typename T, typename Tin, bool kSplit, bool kLast>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_act(const Tin* __restrict__ xa, const Tin* __restrict__ xb, int Ca, int Cb,
-            const float* __restrict__ scale, const float* __restrict__ shift,
-            const T* __restrict__ w, const float* __restrict__ bias,
-            const float* __restrict__ bias2,
-            const T* __restrict__ ra, const T* __restrict__ rb, int Ra, int Rb,
-            const T* __restrict__ ws, float res_scale,
-            void* __restrict__ out, int M, int H, int W, int Cout) {
-  __shared__ __align__(16) float a_s[9 * kTapStride];
-  __shared__ __align__(16) float b_s[9 * kTapStride];
-  __shared__ int row_b[kTM], row_y[kTM], row_x[kTM];
-
-  const int tid = threadIdx.x;
-  const int tm = tid / (kTN / 4);  // pixels m0 + 4*tm .. +3
-  const int tn = tid % (kTN / 4);  // output channels n0 + 4*tn .. +3
-  const int m0 = blockIdx.x * kTM, n0 = blockIdx.y * kTN;
-  const int HW = H * W, Cin = Ca + Cb;
-
-  for (int m = tid; m < kTM; m += kThreads) {
-    const int row = m0 + m;
-    row_b[m] = row < M ? row / HW : -1;
-    row_y[m] = (row % HW) / W;
-    row_x[m] = row % W;
-  }
-  __syncthreads();
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int c0 = 0; c0 < Cin; c0 += kKC) {
-    // Activations of the nine taps, channel fastest: a warp reads 16
-    // contiguous channels of 2 pixels.
-    for (int i = tid; i < 9 * kTM * kKC; i += kThreads) {
-      const int k = i % kKC, m = (i / kKC) % kTM, tap = i / (kKC * kTM);
-      const int c = c0 + k, b = row_b[m];
-      const int yy = row_y[m] + tap / 3 - 1, xx = row_x[m] + tap % 3 - 1;
-      float v = 0.f;
-      if (b >= 0 && c < Cin && yy >= 0 && yy < H && xx >= 0 && xx < W) {
-        const size_t pix = ((size_t)b * H + yy) * W + xx;
-        const size_t bc = (size_t)b * Cin + c;
-        const float a = fmaf(concat_at<Tin, kSplit>(xa, xb, Ca, Cb, pix, c), scale[bc], shift[bc]);
-        v = Cvt<T>::to_f(Cvt<T>::from_f(a / (1.f + __expf(-a))));
-      }
-      a_s[tap * kTapStride + k * kAStride + m] = v;
-    }
-    // Weights w[o][c0 + k][tap] -> b_s[tap][k][o - n0].  For one output
-    // channel the chunk's 16 x 9 values are contiguous; a warp reads 8 of
-    // them for each of 4 output channels, and its stores fall on 32 banks.
-    for (int i = tid; i < kTN * kKC * 9; i += kThreads) {
-      const int e8 = i & 7, nsub = (i >> 3) & 3, rest = i >> 5;
-      const int sector = rest % (kKC * 9 / 8), nquad = rest / (kKC * 9 / 8);
-      const int n = nquad * 4 + nsub;
-      const int e = sector * 8 + e8;  // k * 9 + tap
-      const int k = e / 9, tap = e % 9;
-      const int c = c0 + k, o = n0 + n;
-      float v = 0.f;
-      if (c < Cin && o < Cout) v = Cvt<T>::to_f(w[((size_t)o * Cin + c) * 9 + tap]);
-      b_s[tap * kTapStride + k * kBStride + n] = v;
-    }
-    __syncthreads();
-
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const float* ap = a_s + tap * kTapStride + tm * 4;
-      const float* bp = b_s + tap * kTapStride + tn * 4;
-#pragma unroll 8
-      for (int k = 0; k < kKC; ++k)
-        fma4x4(acc, *reinterpret_cast<const float4*>(ap + k * kAStride),
-               *reinterpret_cast<const float4*>(bp + k * kBStride));
-    }
-    __syncthreads();
-  }
-
-  float racc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) racc[i][j] = 0.f;
-
-  if (kLast && ws != nullptr) {
-    // Channel-mix shortcut: one more K loop, over cat(ra, rb)'s channels at
-    // the output pixel, against ws (Cr, Cout).
-    const int Cr = Ra + Rb;
-    for (int c0 = 0; c0 < Cr; c0 += kKC) {
-      for (int i = tid; i < kTM * kKC; i += kThreads) {
-        const int k = i % kKC, m = i / kKC;
-        const int c = c0 + k;
-        float v = 0.f;
-        if (row_b[m] >= 0 && c < Cr) v = concat_at<T, kSplit>(ra, rb, Ra, Rb, (size_t)m0 + m, c);
-        a_s[k * kAStride + m] = v;
-      }
-      for (int i = tid; i < kKC * kTN; i += kThreads) {
-        const int n = i % kTN, k = i / kTN;
-        const int c = c0 + k, o = n0 + n;
-        b_s[k * kBStride + n] = (c < Cr && o < Cout) ? Cvt<T>::to_f(ws[(size_t)c * Cout + o]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < kKC; ++k)
-        fma4x4(racc, *reinterpret_cast<const float4*>(a_s + k * kAStride + tm * 4),
-               *reinterpret_cast<const float4*>(b_s + k * kBStride + tn * 4));
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = tm * 4 + i;
-    const int b = row_b[m];
-    if (b < 0) continue;
-    const size_t row = (size_t)m0 + m;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = n0 + tn * 4 + j;
-      if (o >= Cout) continue;
-      if (!kLast) {
-        const float bt = bias[o] + (bias2 != nullptr ? bias2[(size_t)b * Cout + o] : 0.f);
-        static_cast<float*>(out)[row * Cout + o] = acc[i][j] + bt;
-      } else {
-        const float h1 = acc[i][j] + (bias[o] + (bias2 != nullptr ? bias2[o] : 0.f));
-        const float res = ws != nullptr ? racc[i][j] : concat_at<T, kSplit>(ra, rb, Ra, Rb, row, o);
-        static_cast<T*>(out)[row * Cout + o] = Cvt<T>::from_f((res + h1) * res_scale);
-      }
-    }
-  }
-}
-
-template <typename T, bool kSplit>
-int launch(const void* x, const void* skip, int Ca, int Cb, const void* gamma0,
-           const void* beta0, int G0, const void* w0, const void* b0, const void* temb,
-           const void* gamma1, const void* beta1, int G1, const void* w1, const void* b1,
-           const void* ws, const void* bs, float res_scale, void* out, void* scratch,
-           int B, int H, int W, int Cout, cudaStream_t stream) {
+int launch_block(const void* x, const void* skip, int Ca, int Cb, const void* gamma0, const void* beta0, int G0,
+                 const void* w0, const void* b0, const void* temb, const void* gamma1, const void* beta1, int G1,
+                 const void* w1, const void* b1, int mix, const void* bs, float res_scale, void* out, void* a0,
+                 void* h, void* a1, int B, int H, int W, int Cout, const conv3x3_core::Plan& plan0,
+                 const conv3x3_core::Plan& plan1, int a_vec0, int b_vec0, int a_vec1, int b_vec1,
+                 cudaStream_t stream) {
   const int Cin = Ca + Cb, HW = H * W, M = B * HW;
-  float* scale0 = static_cast<float*>(scratch);
-  float* shift0 = scale0 + (size_t)B * Cin;
-  float* scale1 = shift0 + (size_t)B * Cin;
-  float* shift1 = scale1 + (size_t)B * Cout;
-  float* h = shift1 + (size_t)B * Cout;
-  const T* xt = static_cast<const T*>(x);
-  const T* st = static_cast<const T*>(skip);
-  const dim3 grid((M + kTM - 1) / kTM, (Cout + kTN - 1) / kTN);
+  int err = skip != nullptr
+                ? gn_silu::launch_act<T, T, true>(x, skip, Ca, Cb, gamma0, beta0, a0, B, HW, G0, stream)
+                : gn_silu::launch_act<T, T, false>(x, nullptr, Ca, 0, gamma0, beta0, a0, B, HW, G0, stream);
+  if (err != 0) return err;
 
-  gn_stats<T, kSplit><<<B * G0, kStatsThreads, 0, stream>>>(
-      xt, st, Ca, Cb, static_cast<const float*>(gamma0), static_cast<const float*>(beta0),
-      scale0, shift0, HW, G0);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  conv3x3_core::Problem p0 = {};
+  p0.x = a0, p0.w = w0, p0.bias = static_cast<const float*>(b0), p0.temb = static_cast<const float*>(temb);
+  p0.out = h;
+  p0.M = M, p0.H = H, p0.W = W, p0.Cin = Cin, p0.Cout = Cout;
+  p0.xsb = HW * Cin, p0.xsh = W * Cin, p0.xsw = Cin, p0.osb = HW * Cout, p0.osh = W * Cout, p0.osw = Cout;
+  p0.a_vec = a_vec0, p0.b_vec = b_vec0;
+  err = conv3x3_core::launch_typed<T, float>(p0, plan0, stream);
+  if (err != 0) return err;
 
-  conv3x3_act<T, T, kSplit, false><<<grid, kThreads, 0, stream>>>(
-      xt, st, Ca, Cb, scale0, shift0, static_cast<const T*>(w0),
-      static_cast<const float*>(b0), static_cast<const float*>(temb),
-      nullptr, nullptr, 0, 0, nullptr, 1.f, h, M, H, W, Cout);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  err = gn_silu::launch_act<float, T, false>(h, nullptr, Cout, 0, gamma1, beta1, a1, B, HW, G1, stream);
+  if (err != 0) return err;
 
-  gn_stats<float, false><<<B * G1, kStatsThreads, 0, stream>>>(
-      h, nullptr, Cout, 0, static_cast<const float*>(gamma1), static_cast<const float*>(beta1),
-      scale1, shift1, HW, G1);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  conv3x3_act<T, float, kSplit, true><<<grid, kThreads, 0, stream>>>(
-      h, nullptr, Cout, 0, scale1, shift1, static_cast<const T*>(w1),
-      static_cast<const float*>(b1), static_cast<const float*>(bs),
-      xt, st, Ca, Cb, static_cast<const T*>(ws), res_scale, out, M, H, W, Cout);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(const void* x, const void* skip, int Ca, int Cb, const void* gamma0,
-             const void* beta0, int G0, const void* w0, const void* b0, const void* temb,
-             const void* gamma1, const void* beta1, int G1, const void* w1, const void* b1,
-             const void* ws, const void* bs, float res_scale, void* out, void* scratch,
-             int B, int H, int W, int Cout, cudaStream_t stream) {
-  if (skip == nullptr)
-    return launch<T, false>(x, skip, Ca, 0, gamma0, beta0, G0, w0, b0, temb, gamma1, beta1, G1,
-                            w1, b1, ws, bs, res_scale, out, scratch, B, H, W, Cout, stream);
-  return launch<T, true>(x, skip, Ca, Cb, gamma0, beta0, G0, w0, b0, temb, gamma1, beta1, G1, w1,
-                         b1, ws, bs, res_scale, out, scratch, B, H, W, Cout, stream);
+  conv3x3_core::FoldProblem p1 = {};
+  static_cast<conv3x3_core::Problem&>(p1) = p0;
+  p1.x = a1, p1.w = w1, p1.bias = static_cast<const float*>(b1), p1.temb = nullptr, p1.out = out;
+  p1.Cin = Cout;
+  p1.xsb = HW * Cout, p1.xsh = W * Cout, p1.xsw = Cout;
+  p1.a_vec = a_vec1, p1.b_vec = b_vec1;
+  p1.ra = x, p1.rb = skip, p1.Ca = Ca, p1.Cb = Cb, p1.mix = mix;
+  p1.bias2 = static_cast<const float*>(bs), p1.res_scale = res_scale;
+  return conv3x3_core::launch_typed<T, T, conv3x3_core::FoldProblem>(p1, plan1, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// skip null: the block kernel on x (Ca channels; Cb is ignored).  skip given:
-// the split kernel on cat(x, skip) (Ca + Cb channels).  temb, ws and bs may
-// be null (no temb; identity residual, which needs Ca + Cb == Cout).
-// dtype: 0 = float32, 1 = bfloat16.  scratch is float32 of
-// 2*B*(Ca+Cb) + 2*B*Cout + B*H*W*Cout.  Returns a cudaError_t (0 on success).
-int resblock_fused_launch(const void* x, const void* skip, int Ca, int Cb, const void* gamma0,
-                          const void* beta0, int G0, const void* w0, const void* b0,
-                          const void* temb, const void* gamma1, const void* beta1, int G1,
-                          const void* w1, const void* b1, const void* ws, const void* bs,
-                          float res_scale, void* out, void* scratch, int B, int H, int W,
-                          int Cout, int dtype, void* stream) {
-  const int Cin = Ca + (skip != nullptr ? Cb : 0);
-  if (B <= 0 || H <= 0 || W <= 0 || Ca <= 0 || (skip != nullptr && Cb <= 0) || Cout <= 0 ||
-      G0 <= 0 || G1 <= 0 || Cin % G0 != 0 || Cout % G1 != 0 || (ws == nullptr && Cin != Cout))
+// skip null: the block kernel on x (Ca channels; Cb must be 0).  skip given:
+// the split kernel on cat(x, skip) (Ca + Cb channels).  temb and bs may be
+// null.  mix 1: w1 is the packed [w1 ; ws] of (9*Cout + Ca + Cb, Cout);
+// mix 0: w1 is (9*Cout, Cout) and the residual is the identity, which needs
+// Ca + Cb == Cout.  a0 (B*H*W*(Ca+Cb) of T), h (B*H*W*Cout float32) and a1
+// (B*H*W*Cout of T) are scratch.  dtype: 0 = float32, 1 = bfloat16.  The
+// two plans (bm, bn, bk, stages, splits, smem bytes, a_vec, b_vec) are the
+// host's (ops/conv3x3.py:launch_plan) for conv0 and for conv1 with the
+// folded shortcut, checked against the compiled configurations.  Returns a
+// cudaError_t (0 on success).
+int resblock_fused_launch(const void* x, const void* skip, int Ca, int Cb, const void* gamma0, const void* beta0,
+                          int G0, const void* w0, const void* b0, const void* temb, const void* gamma1,
+                          const void* beta1, int G1, const void* w1, const void* b1, int mix, const void* bs,
+                          float res_scale, void* out, void* a0, void* h, void* a1, int B, int H, int W, int Cout,
+                          int dtype, int bm0, int bn0, int bk0, int stages0, int splits0, int smem0, int a_vec0,
+                          int b_vec0, int bm1, int bn1, int bk1, int stages1, int splits1, int smem1, int a_vec1,
+                          int b_vec1, void* stream) {
+  if (skip == nullptr) Cb = 0;
+  const int Cin = Ca + Cb;
+  if (!conv3x3_core::dims_ok(B, H, W, Cin, Cout) || (skip != nullptr && Cb <= 0) || G0 <= 0 || G1 <= 0 ||
+      Cin % G0 != 0 || Cout % G1 != 0 || (mix == 0 && Cin != Cout) ||
+      (9L * Cout + Cin) * Cout >= (1L << 31) || b0 == nullptr || b1 == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  const conv3x3_core::Plan plan0 = {bm0, bn0, bk0, stages0, splits0, smem0};
+  const conv3x3_core::Plan plan1 = {bm1, bn1, bk1, stages1, splits1, smem1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(x, skip, Ca, Cb, gamma0, beta0, G0, w0, b0, temb, gamma1, beta1, G1,
-                           w1, b1, ws, bs, res_scale, out, scratch, B, H, W, Cout, s);
+    return launch_block<float>(x, skip, Ca, Cb, gamma0, beta0, G0, w0, b0, temb, gamma1, beta1, G1, w1, b1,
+                               mix != 0, bs, res_scale, out, a0, h, a1, B, H, W, Cout, plan0, plan1, a_vec0,
+                               b_vec0, a_vec1, b_vec1, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(x, skip, Ca, Cb, gamma0, beta0, G0, w0, b0, temb, gamma1,
-                                   beta1, G1, w1, b1, ws, bs, res_scale, out, scratch, B, H, W,
-                                   Cout, s);
+    return launch_block<__nv_bfloat16>(x, skip, Ca, Cb, gamma0, beta0, G0, w0, b0, temb, gamma1, beta1, G1, w1,
+                                       b1, mix != 0, bs, res_scale, out, a0, h, a1, B, H, W, Cout, plan0, plan1,
+                                       a_vec0, b_vec0, a_vec1, b_vec1, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -364,11 +364,12 @@ class FusedResblock(nn.Module):
         """The block's parameters as the whole-block kernels take them:
         weights in the compute ``dtype``, vectors and the temb projection
         (computed here, as in JAX) in float32, the shortcut (NIN or 1x1
-        conv) as a (Cin, Cout) matrix."""
+        conv) as a (Cin, Cout) matrix: the transposed view of its (Cout, Cin)
+        weight, which the kernel packs once per weight."""
         ws = bs = None
         if self.shortcut is not None:
             w, b = self.shortcut.channel_mix()
-            ws, bs = w.t().to(dtype).contiguous(), b.float()
+            ws, bs = w.t().to(dtype), b.float()
         return dict(
             gamma0=self.norm0.weight.float(), beta0=self.norm0.bias.float(),
             num_groups0=self.norm0.num_groups,

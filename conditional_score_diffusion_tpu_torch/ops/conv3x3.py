@@ -40,9 +40,10 @@ Layouts: ``x`` NHWC (or (H, W, B, C) for the hmajor entry), contiguous;
 the sums are float32 and the output, in ``x``'s dtype, is rounded once.
 
 :func:`launch_plan` is the launch plan of the 3x3 main loop
-(`csrc/conv3x3_core.cuh`) that this kernel and the fused tail
-(`ops/fused_tail.py`) share: tile, stages, split-K count (the size of the
-thread-block cluster), copy widths, shared memory.  It is computed here,
+(`csrc/conv3x3_core.cuh`) that this kernel, the fused tail
+(`ops/fused_tail.py`) and the whole-resblock kernels (`ops/fused_block.py`)
+share: tile, stages, split-K count (the size of the thread-block cluster),
+copy widths, shared memory.  It is computed here,
 on the host, so the CPU tests reach it; the C entries check it against
 what they compiled.
 """
@@ -98,27 +99,31 @@ class LaunchPlan(NamedTuple):
     b_vec: int  # the same for the weights along output channels
     mtiles: int
     ntiles: int
-    nchunks: int  # BK-wide chunks of K = 9 * Cin
+    nchunks: int  # BK-wide chunks of K = 9 * Cin + extra
 
     def c_args(self):
         """The ints the C entries take, in their order."""
         return (self.bm, self.bn, self.bk, self.stages, self.splits, self.smem, self.a_vec, self.b_vec)
 
 
-def launch_plan(M: int, Cin: int, Cout: int, dtype: torch.dtype, x_aligned: bool = True) -> LaunchPlan:
-    """The plan of one main-loop launch over ``M`` pixels, ``Cin`` -> ``Cout``.
+def launch_plan(
+    M: int, Cin: int, Cout: int, dtype: torch.dtype, x_aligned: bool = True, extra: int = 0
+) -> LaunchPlan:
+    """The plan of one main-loop launch over ``M`` pixels, ``Cin`` -> ``Cout``,
+    K = 9 * ``Cin`` + ``extra`` (the whole-resblock's conv1 folds its
+    channel-mix shortcut into ``extra`` more K columns).
 
     The tile width BN wastes the fewest output columns (the wider on a tie;
     the narrow tile for Cout up to its width).  Copies are 16 bytes where a
-    pixel's channels (``Cin``; ``x_aligned``: x's address too) or a weight
-    row (``Cout``) are whole 16-byte vectors.  Where the M x N tiles are
-    fewer than the SMs, K's chunks are split over ``splits`` >= 2 blocks of
-    one cluster: the largest of :data:`SPLIT_COUNTS` whose blocks fit the
-    SMs in one wave and, where they take two blocks an SM, sum
-    :data:`MIN_SPLIT_K` K values or more each; at most :data:`MAX_SPLITS`
-    and one per chunk.  The shared memory holds
-    the stages' A and B tiles, or the float32 output tile of the epilogue,
-    whichever is larger.
+    pixel's channels (``Cin``; ``x_aligned``: x's address too, and whatever
+    the ``extra`` columns read) or a weight row (``Cout``) are whole 16-byte
+    vectors.  Where the M x N tiles are fewer than the SMs, K's chunks are
+    split over ``splits`` >= 2 blocks of one cluster: the largest of
+    :data:`SPLIT_COUNTS` whose blocks fit the SMs in one wave and, where
+    they take two blocks an SM, sum :data:`MIN_SPLIT_K` K values or more
+    each; at most :data:`MAX_SPLITS` and one per chunk.  The shared memory
+    holds the stages' A and B tiles, or the float32 output tile of the
+    epilogue, whichever is larger.
     """
     configs = TILES[dtype]
     narrow = min(configs)
@@ -132,14 +137,15 @@ def launch_plan(M: int, Cin: int, Cout: int, dtype: torch.dtype, x_aligned: bool
     stage_bytes = (bm * (bk + pad_a) + bk * (bn + pad_b)) * item
     smem = max(stages * stage_bytes, bm * (bn + 4) * 4)
     vec = 16 // item
-    mtiles, ntiles, nchunks = -(-M // bm), -(-Cout // bn), -(-9 * Cin // bk)
+    K = 9 * Cin + extra
+    mtiles, ntiles, nchunks = -(-M // bm), -(-Cout // bn), -(-K // bk)
     max_splits = min(MAX_SPLITS, nchunks)
     tiles, splits = mtiles * ntiles, 1
     if tiles < SM_COUNT and max_splits > 1:
         fits = [
             s for s in SPLIT_COUNTS
             if s <= max_splits and tiles * s <= SM_COUNT * per_sm
-            and (tiles * s <= SM_COUNT or 9 * Cin >= s * MIN_SPLIT_K)
+            and (tiles * s <= SM_COUNT or K >= s * MIN_SPLIT_K)
         ]
         splits = max(fits, default=2)
     return LaunchPlan(
@@ -148,10 +154,11 @@ def launch_plan(M: int, Cin: int, Cout: int, dtype: torch.dtype, x_aligned: bool
     )
 
 
-def split_k_ranges(plan: LaunchPlan, Cin: int):
-    """The [k0, k1) range of K = 9 * Cin (k = tap * Cin + channel) that each
-    split of ``plan`` sums, in rank order, as the kernel cuts it."""
-    K, n, s = 9 * Cin, plan.nchunks, plan.splits
+def split_k_ranges(plan: LaunchPlan, Cin: int, extra: int = 0):
+    """The [k0, k1) range of K = 9 * Cin + extra (k = tap * Cin + channel,
+    then the extra columns) that each split of ``plan`` sums, in rank order,
+    as the kernel cuts it."""
+    K, n, s = 9 * Cin + extra, plan.nchunks, plan.splits
     return [(r * n // s * plan.bk, min(K, (r + 1) * n // s * plan.bk)) for r in range(s)]
 
 

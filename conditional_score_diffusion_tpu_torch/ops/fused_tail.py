@@ -103,16 +103,16 @@ def load_library() -> KernelLibrary:
     return built
 
 
-def check_arg(name, t, device, dtype, shape):
+def check_arg(name, t, device, dtype, shape, contiguous=True):
     """Raise unless ``t`` is on ``device``, of ``dtype`` and ``shape``, and
-    contiguous: what a kernel of the port takes."""
+    (``contiguous``) contiguous: what a kernel of the port takes."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x on {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
@@ -162,36 +162,44 @@ def gn_silu_conv3x3(
     return forward_only("gn_silu_conv3x3", lambda: _launch(*args), args, EVAL_ONLY)
 
 
-# id(w) -> (a weak reference to w, w's (data_ptr, version, dtype, device,
-# shape), w as the main loop's B operand); see `_packed_weight`.
+# id(w) -> (a weak reference to w, the sources' keys, w as the main loop's
+# B operand); see `_packed_weight`.
 _PACKED: dict = {}
 
 
 def _weight_key(w: torch.Tensor):
-    """What the packed copy of ``w`` was made from: its storage, version
-    counter, dtype, device and shape.  `nn.Module.to` and its kin swap a
-    parameter's data in place (same object, same version), which this
-    sees."""
-    return (w.data_ptr(), w._version, w.dtype, w.device, tuple(w.shape))
+    """What a packed copy of ``w`` was made from: its storage, version
+    counter, dtype, device, shape and strides.  `nn.Module.to` and its kin
+    swap a parameter's data in place (same object, same version), which
+    this sees; a view shares its base's version counter."""
+    return (w.data_ptr(), w._version, w.dtype, w.device, tuple(w.shape), w.stride())
+
+
+def packed_operand(cache: dict, anchor: torch.Tensor, sources, make):
+    """``make(*sources)``, kept in ``cache`` under ``id(anchor)`` while
+    ``anchor`` lives and every source's :func:`_weight_key` stands still;
+    the entry goes with ``anchor``.  For an eval kernel's B operand made
+    from the model's own weights, which no call changes: the repack (a copy
+    kernel of 0.7-3 MB a call) is made once per weight.  An in-place update
+    of a source bumps its version and a conversion (``.to``, ``.cuda``,
+    ``.bfloat16``) moves its data, and either repacks; an in-place write
+    through ``.data`` does neither, and the port makes none."""
+    key = id(anchor)
+    stamp = tuple(_weight_key(t) for t in sources)
+    hit = cache.get(key)
+    if hit is not None and hit[0]() is anchor and hit[1] == stamp:
+        return hit[2]
+    packed = make(*sources)
+    cache[key] = (weakref.ref(anchor, lambda _, key=key: cache.pop(key, None)), stamp, packed)
+    return packed
 
 
 def _packed_weight(w: torch.Tensor) -> torch.Tensor:
-    """``w`` repacked to (3, 3, Cin, Cout) (`ops.conv3x3.hwio`), kept while
-    ``w`` lives and :func:`_weight_key` stands still: the tail runs in eval
-    mode on the model's own weights, which no call changes, so its repack
-    (a copy kernel of 0.7-3 MB a call) is made once per weight.  An in-place
-    update of ``w`` bumps its version and a conversion (``.to``, ``.cuda``,
-    ``.bfloat16``) moves its data, and either repacks; an in-place write
-    through ``w.data`` does neither, and the port makes none."""
+    """``w`` repacked to (3, 3, Cin, Cout) (`ops.conv3x3.hwio`), once per
+    weight (:func:`packed_operand`)."""
     from .conv3x3 import hwio  # conv3x3 imports this module
 
-    key = id(w)
-    hit = _PACKED.get(key)
-    if hit is not None and hit[0]() is w and hit[1] == _weight_key(w):
-        return hit[2]
-    packed = hwio(w)
-    _PACKED[key] = (weakref.ref(w, lambda _, key=key: _PACKED.pop(key, None)), _weight_key(w), packed)
-    return packed
+    return packed_operand(_PACKED, w, (w,), hwio)
 
 
 def _launch(x, w, gamma, beta, num_groups, bias, temb):
