@@ -30,8 +30,11 @@ Phases, each printing its own line with its seconds:
    only).  The FIR
    upsample and downsample at the 20 shapes of one NCSN++ forward (5x5 to
    160x160, 6 to 256 channels; a non-symmetric kernel at two of them),
-   timed beside their plain versions, the depthwise cuDNN call and the
-   bound.  The 3x3 conv (kernel 4) at the 27 distinct forward and dx shapes
+   timed with their operands out of L2 (calls rotated over copies of 100 MB
+   or more, `rotated`) beside their plain versions, the depthwise cuDNN
+   call and the bound, and L2-resident (one input over and over); then
+   at inputs 4 bytes off an aligned address, 3 channels and odd H and W
+   (`FIR_EXTRA_CASES`).  The 3x3 conv (kernel 4) at the 27 distinct forward and dx shapes
    of the flagship train step (B=16, 160x160x6 to 5x5x288; counted on the
    meta device), timed beside its plain version, F.conv2d and the bound;
    its autograd input gradient against F.conv2d's at two shapes; kernel 5's
@@ -78,7 +81,10 @@ Phases, each printing its own line with its seconds:
    parameters) with seeded N(0, 0.02) weights; the multi-speed VE SDE with
    sigma_y as the VS-CMDE schedule leaves it (sigma_y,max 138.6); float32
    through `get_conditional_sampling_fn`, 200 steps; the FIR counters must
-   read 15 x 2 x 200 each.
+   read 15 x 2 x 200 each.  Then one backward through the same model at
+   B=1 (`ncsnpp_backward`): finite gradients equal by norm to those with
+   every FIR call on its plain version, and the FIR kernels launched only
+   on the input pyramid, none in the backward.
 8. main (the trainer path): `Trainer(texture160_sr_cmde_conv3x3)
    .fit(max_steps=20)`: the texture160 train split, batch 16, float32,
    dropout 0.1, the DDPM init, every 3x3 stride-1 conv and its input
@@ -112,6 +118,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import itertools
 import json
 import math
 import os
@@ -223,7 +230,25 @@ FIR_SHAPES = [
 ]
 FIR_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 ASYMMETRIC_FIR = (1.0, 2.0, 5.0, 0.5)  # a non-symmetric 4-tap kernel, checked at one shape each
+# FIR calls the NCSN++ path does not make, checked all the same: (kernel, B,
+# H, W, C, offset in bytes of the input's data from an aligned address).
+# At 4 bytes the vector narrows (float32 to one element, bfloat16 to two);
+# 3 channels; odd H and W (the upsample takes them).
+FIR_EXTRA_CASES = [
+    ("fir_upsample2", 8, 40, 40, 128, 4), ("fir_downsample2", 8, 80, 80, 64, 4),
+    ("fir_upsample2", 8, 20, 20, 6, 4), ("fir_downsample2", 8, 20, 20, 6, 4),
+    ("fir_upsample2", 8, 20, 20, 3, 0), ("fir_downsample2", 8, 20, 20, 3, 0),
+    ("fir_upsample2", 8, 15, 13, 64, 0), ("fir_upsample2", 2, 7, 9, 6, 0), ("fir_upsample2", 3, 5, 7, 3, 0),
+]
+# Timing with the operands out of L2 (`rotated`): the H100's L2 holds 50 MB,
+# and every FIR call of the path but the two 65 MB ones fits in it.
+L2_SAFE_BYTES = 100e6
+MAX_COPIES = 128  # more than the 113 calls of one `time_ms`
 PER_FORWARD_NCSNPP_PATH = {"fir_upsample2": 15, "fir_downsample2": 15}
+# The FIR launches of one NCSN++ forward that carries a gradient: only the
+# raw input's pyramid (160 to 10, 6 channels) needs none, so only its 5
+# downsamples launch a kernel; every other call takes its plain version.
+NCSNPP_GRAD_FORWARD = {"fir_upsample2": 0, "fir_downsample2": 5}
 STEPS = 200  # the bfloat16 block path and the NCSN++ path, cut from their 1000 to keep the run short
 TAIL_PATH_STEPS = 200  # the float32 tail path, cut from 1000 likewise
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -617,12 +642,37 @@ def fir_library(name, x):
     return out.permute(0, 2, 3, 1)
 
 
-def check_fir():
+def rotated(fn, x, nbytes):
+    """``fn`` on ceil(100 MB / ``nbytes``) copies of ``x`` (at most
+    `MAX_COPIES`) in turn, each output kept until its copy's next turn.
+    Every copy has one turn first (so the allocator holds every output's
+    memory before a timing: a device allocation inside one stalls it), then
+    the L2 is flushed.  A timed call then finds its input and output out of
+    L2: 100 MB of other calls' traffic has passed since the copy's last
+    turn, or (calls under 0.8 MB, whose 128 copies hold less) the copy has
+    had no turn since the flush (`time_ms` makes 113 calls)."""
+    n = min(MAX_COPIES, math.ceil(L2_SAFE_BYTES / nbytes))
+    xs = [x.clone() for _ in range(n)]
+    outs = [fn(t) for t in xs]
+    torch.empty(int(L2_SAFE_BYTES) // 4, device=x.device).zero_()  # evicts the copies from L2
+    turn = itertools.count()
+
+    def call():
+        i = next(turn) % n
+        outs[i] = fn(xs[i])
+
+    return call
+
+
+def check_fir(yardsticks=True):
     """Both FIR kernels against plain at the 20 shapes of one NCSN++
     forward, float32 (1e-5 of the largest magnitude) and bfloat16 (2e-2),
-    and with a non-symmetric kernel at one shape each; returns per-shape
-    rows with times (CUDA events over 100 calls) beside the plain version,
-    the library call and the bound."""
+    and with a non-symmetric kernel at two shapes; returns per-shape rows
+    with times (CUDA events over 100 calls): ``ms`` with the operands out of
+    L2 (`rotated`), beside the plain version, the library call (both
+    rotated too) and the bound; ``l2_ms`` one input and output address
+    over and over (L2-resident up to 50 MB).  Without
+    ``yardsticks`` the plain version and the library call are not timed."""
     rows = []
     for name, h, c, calls in FIR_SHAPES:
         kernel, plain = WRAPPERS[name], getattr(fir, f"{name}_plain")
@@ -635,7 +685,6 @@ def check_fir():
             if (h, c) in ((20, 6), (10, 256)):
                 check_close(f"{label} k={ASYMMETRIC_FIR}", kernel(x, ASYMMETRIC_FIR), plain(x, ASYMMETRIC_FIR),
                             dtype, FIR_REL_TOL)
-            lib_err = (fir_library(name, x).float() - plain(x).float()).abs().max().item()
             taps = 4 if name == "fir_upsample2" else 16
             out_elems = BATCH * out_h * out_h * c
             flops = 2 * taps * out_elems
@@ -643,19 +692,44 @@ def check_fir():
             bound_ms, bound_by = bound(flops, nbytes, dtype)
             row = dict(
                 kernel=name, shape=f"{BATCH}x{h}x{h}x{c}", dtype=dname(dtype), calls_per_forward=calls,
-                max_abs_err=err, library_max_abs_err=lib_err, gflop=flops / 1e9, mbytes=nbytes / 1e6,
-                bound_ms=bound_ms, bound_by=bound_by,
-                ms=time_ms(lambda: kernel(x)), plain_ms=time_ms(lambda: plain(x)),
-                library_ms=time_ms(lambda: fir_library(name, x)),
+                max_abs_err=err, gflop=flops / 1e9, mbytes=nbytes / 1e6, bound_ms=bound_ms, bound_by=bound_by,
+                ms=time_ms(rotated(kernel, x, nbytes)), l2_ms=time_ms(lambda: kernel(x)),
             )
-            print(
-                f"    time: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms,"
-                f" depthwise cuDNN {row['library_ms']:.4f} ms (max diff {lib_err:.1e}){ratio(row)},"
-                f" bound {bound_ms:.4f} ms ({bound_by}), {nbytes / row['ms'] / 1e6:.1f} GB/s",
-                flush=True,
-            )
+            msg = (f"    time: kernel {row['ms']:.4f} ms ({nbytes / row['ms'] / 1e6:.1f} GB/s), L2-resident"
+                   f" {row['l2_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            if yardsticks:
+                row["library_max_abs_err"] = (fir_library(name, x).float() - plain(x).float()).abs().max().item()
+                row["plain_ms"] = time_ms(rotated(plain, x, nbytes))
+                row["library_ms"] = time_ms(rotated(lambda t: fir_library(name, t), x, nbytes))
+                msg += (f", plain {row['plain_ms']:.4f} ms, depthwise cuDNN {row['library_ms']:.4f} ms"
+                        f" (max diff {row['library_max_abs_err']:.1e}){ratio(row)}")
+            print(msg, flush=True)
             rows.append(row)
     return rows
+
+
+def offset_input(shape, dtype, offset, seed):
+    """A contiguous NHWC input whose data starts ``offset`` bytes past an
+    allocation's (aligned) start."""
+    skip = offset // itemsize(dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    buf = (torch.randn(math.prod(shape) + skip, generator=g, device="cuda") * 1.5 + 0.3).to(dtype)
+    return buf[skip:].view(shape)
+
+
+def check_fir_cases():
+    """The FIR kernels against plain at `FIR_EXTRA_CASES` (inputs at an
+    offset, 3 channels, odd H and W), both types, at `FIR_REL_TOL`; an
+    offset input narrows the plan's vector to 4 bytes."""
+    for name, b, h, w, c, offset in FIR_EXTRA_CASES:
+        kernel, plain = WRAPPERS[name], getattr(fir, f"{name}_plain")
+        for dtype in (torch.float32, torch.bfloat16):
+            x = offset_input((b, h, w, c), dtype, offset, seed=h * w + c)
+            plan = fir.launch_plan(b, h, w, c, dtype, (x.data_ptr(), 0), down=name == "fir_downsample2")
+            if offset and plan.vec * itemsize(dtype) != 4:
+                raise RuntimeError(f"{name} at a {offset}-byte offset: plan {plan}, expected 4-byte vectors")
+            check_close(f"{name} {b}x{h}x{w}x{c} {dname(dtype)} offset {offset} B, {plan}", kernel(x), plain(x),
+                        dtype, FIR_REL_TOL)
 
 
 # ---- the 3x3 conv (kernels 4 and 5) ------------------------------------------
@@ -1085,6 +1159,59 @@ def run_sampler(label, sample, per_forward, steps):
     return result
 
 
+def ncsnpp_backward(model, batch):
+    """One ``loss.backward()`` through the full-width ncsnpp_KxSR at B=1, in
+    train mode, float32: the loss a seeded weighted sum of its output on the
+    first test pair at label 499.5.  Where a gradient flows, the FIR
+    resamplings take their plain versions (`ops/upfirdn.py`), so the forward
+    launches the kernels on the raw input's pyramid alone
+    (`NCSNPP_GRAD_FORWARD`) and the backward launches none.  Every gradient
+    must be finite, and all of them together must agree by norm (1e-4) with
+    the same backward with every FIR call on its plain version."""
+    t = time.perf_counter()
+    inputs = {k: batch[k][:1] for k in ("x", "y")}
+    labels = torch.full((1,), 499.5, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    with torch.no_grad():
+        weights = {k: torch.randn(v.shape, generator=g, device="cuda") for k, v in model(inputs, labels).items()}
+    model.train()
+
+    def backward():
+        model.zero_grad(set_to_none=True)
+        torch.manual_seed(4)  # the same dropout masks both times
+        out = model(inputs, labels)
+        forward = {n: WRAPPERS[n].launches for n in NCSNPP_GRAD_FORWARD}
+        sum((out[k] * weights[k]).sum() for k in weights).backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+        return forward, {n: WRAPPERS[n].launches for n in NCSNPP_GRAD_FORWARD}, grads
+
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    forward, after, grads = backward()
+    with plain_versions():
+        _, _, plain_grads = backward()
+    model.eval()
+    finite = all(bool(torch.isfinite(v).all()) for v in grads.values())
+    got, want = (torch.cat([d[n].flatten() for n in sorted(plain_grads)]) for d in (grads, plain_grads))
+    err = norm_rel_err(got, want)
+    result = dict(
+        check="float32 NCSN++ backward, B=1", tensors=len(grads), finite=finite, fir_launches_forward=forward,
+        fir_launches_after_backward=after, grad_norm=want.norm().item(), vs_plain_by_norm=err,
+    )
+    phase(
+        "backward", t,
+        f"ncsnpp_KxSR B=1: {len(grads)} gradient tensors, finite={finite}, |grad| {result['grad_norm']:.4e},"
+        f" kernel path vs plain {err:.3e} by norm (tol 1e-4); FIR launches in the forward {forward}"
+        f" (expected {NCSNPP_GRAD_FORWARD}), after the backward {after}",
+    )
+    if not finite or sorted(grads) != sorted(plain_grads) or err > 1e-4:
+        raise RuntimeError("NCSN++ backward: gradients not finite or not those of the plain path")
+    if forward != NCSNPP_GRAD_FORWARD or after != forward:
+        raise RuntimeError(f"NCSN++ backward: FIR launches {forward} then {after}, expected {NCSNPP_GRAD_FORWARD}")
+    return result
+
+
 def per_forward_row(name, route_source, replaces, launches, rows, dtype, calls_key, unit):
     """One kernel's line: sums over the calls of one forward at ``dtype``."""
     rows = [r for r in rows if r["dtype"] == dname(dtype) and r[calls_key] > 0]
@@ -1405,6 +1532,7 @@ def main() -> int:
     block_rows = check_blocks()
     ncsnpp_tail_rows = check_ncsnpp_sites()
     fir_rows = check_fir()
+    check_fir_cases()
     shapes = conv_call_shapes(train_configs())
     per_step = tuple(sum(n for (ph, *_), n in shapes.items() if ph == p) for p in ("forward", "dx"))
     if per_step != CONV_PER_TRAIN_STEP:
@@ -1494,6 +1622,7 @@ def main() -> int:
         "float32 NCSN++ DF2K direct 4x", lambda: kx_sample(gen, kx_model, kx_batch["y"])[0],
         PER_FORWARD_NCSNPP_PATH, STEPS,
     )
+    agree.append(ncsnpp_backward(kx_model, kx_batch))
     del kx_model, kx_sample
 
     # ---- the trainer path: agreement, then Trainer.fit with and without kernel 4
@@ -1555,12 +1684,15 @@ def main() -> int:
             f"conditional_score_diffusion_tpu/ops/pallas_kernels.py:{line}",
             main_ncsnpp["launches"][name], rows, torch.float32, "calls_per_forward",
             f"one forward of the float32 NCSN++ path: its {PER_FORWARD_NCSNPP_PATH[name]} calls, B=8;"
+            " ms, plain_ms and library_ms with the operands out of L2 (l2_ms: L2-resident, one input);"
             " library_ms is the depthwise 4x4 cuDNN call",
         )
         k["bfloat16"] = per_forward_row(
             name, k["source"], k["replaces"], k["launches"], rows, bf16, "calls_per_forward",
             "the same calls in bfloat16",
         )
+        for line, dtype in ((k, torch.float32), (k["bfloat16"], bf16)):
+            line["l2_ms"] = sum(r["l2_ms"] * r["calls_per_forward"] for r in rows if r["dtype"] == dname(dtype))
         kernels.append(k)
     for k in kernels:
         k["per_shape"] = [

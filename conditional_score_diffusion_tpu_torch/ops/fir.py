@@ -14,8 +14,10 @@ then take the plain version (:func:`fir_upsample2_plain`,
 :func:`fir_downsample2_plain`: `ops/upfirdn.py` at factor 2) for a CPU
 tensor and launch the kernel for a CUDA tensor; there is no other path.
 ``.launches`` on each wrapper counts its kernel's launches.  The kernels
-have no backward yet: where a gradient could flow, the call goes through
-`ops.forward_only`, whose backward raises (:data:`NO_BACKWARD`).
+have no backward: `ops/upfirdn.py` sends a call through which a gradient
+must flow to the plain version instead, and a direct call here that
+carries one goes through `ops.forward_only`, whose backward raises
+(:data:`NO_BACKWARD`).
 
 With the per-axis taps ``c = k / sum(k) * gain`` (gain 2 for up, 1 for
 down) and zeros outside the image, in polyphase form::
@@ -25,13 +27,18 @@ down) and zeros outside the image, in polyphase form::
 
 on both spatial axes; ``x`` float32 or bfloat16, sums in float32, the output
 rounded to ``x.dtype`` once.
+
+:func:`launch_plan` is a launch's plan (vector width, the run of pixels a
+thread walks, block size, block count), computed on the host so the CPU
+tests reach it; the C entries refuse a plan they did not compile or that
+does not fit the call.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -44,6 +51,52 @@ from .upfirdn import downsample_2d_plain, upsample_2d_plain
 
 FIR_KERNEL = (1.0, 3.0, 3.0, 1.0)  # every recipe's fir_kernel
 NO_BACKWARD = "the FIR gradient comes with NCSN++ training (ROADMAP.md section 1, item 7)"
+
+INT32_LIMIT = 2**31  # offsets within one image and the thread count are 32-bit
+VEC_BYTES = (16, 8, 4)  # the vector accesses, widest first; below them one element a thread
+SECTOR = 32  # bytes of one memory sector
+# A thread walks RUN pixels along W where a pixel's channels are whole
+# sectors and that leaves MIN_RUN_THREADS threads or more (~750 an SM),
+# else 1.  Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section
+# 6): a run of 2 beat 1 by 8-15% at the 8x80x80x64 upsample and the
+# 8x160x160x64 and 8x80x80x64 downsamples in float32 (bfloat16: within
+# 3%), and lost by up to 50% where it left fewer threads; runs of 4 and 8
+# were slower per forward.
+RUN = 2
+MIN_RUN_THREADS = 98_304
+THREADS = 128  # a block; 64 and 256 were no faster
+
+
+class FirPlan(NamedTuple):
+    """One launch of a FIR kernel; see :func:`launch_plan`."""
+
+    vec: int  # channels a thread moves in one access (vec * itemsize bytes)
+    run: int  # pixels along W a thread walks: input pixels (up), output pixels (down)
+    threads: int  # threads a block
+    blocks: int
+
+
+def launch_plan(
+    B: int, H: int, W: int, C: int, dtype: torch.dtype, ptrs: Sequence[int], down: bool = False
+) -> FirPlan:
+    """The plan of one upsample (or, ``down``, downsample) of a (B, H, W, C)
+    input of ``dtype`` whose input and output addresses are ``ptrs``.
+
+    The vector is the widest of :data:`VEC_BYTES` that divides a pixel's
+    ``C * itemsize`` bytes and every address (an offset view of a tensor
+    need not be aligned), else one element.  One thread per (row, run of
+    pixels, vector); the run is :data:`RUN` or 1 (see there).
+    """
+    item = torch.tensor([], dtype=dtype).element_size()
+    vec_bytes = next((v for v in VEC_BYTES if (C * item) % v == 0 and all(p % v == 0 for p in ptrs)), item)
+    vec = vec_bytes // item
+    rows, steps = (B * H // 2, W // 2) if down else (B * H, W)
+    if H * W * C * (1 if down else 4) >= INT32_LIMIT or rows * steps * (C // vec) >= INT32_LIMIT:
+        raise ValueError(f"FIR call {B}x{H}x{W}x{C} is past the kernels' 32-bit offsets")
+    threads = lambda run: rows * -(-steps // run) * (C // vec)  # noqa: E731
+    whole_sectors = (C * item) % SECTOR == 0
+    run = RUN if whole_sectors and threads(RUN) >= MIN_RUN_THREADS else 1
+    return FirPlan(vec, run, THREADS, -(-threads(run) // THREADS))
 
 
 def norm_taps(k: Sequence[float], gain: float) -> np.ndarray:
@@ -70,7 +123,8 @@ def load_library() -> KernelLibrary:
     built = nvcc.build("fir_resample")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn in (built.lib.fir_upsample2_launch, built.lib.fir_downsample2_launch):
-        fn.argtypes = [p, p, i, i, i, i, f, f, f, f, i, p]  # x, out, B, H, W, C, c0..c3, dtype, stream
+        # x, out, B, H, W, C, c0..c3, dtype, the plan's vec, run, threads, blocks, stream
+        fn.argtypes = [p, p, i, i, i, i, f, f, f, f, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     built.lib.fir_resample_error_string.argtypes = [ctypes.c_int]
     built.lib.fir_resample_error_string.restype = ctypes.c_char_p
@@ -81,8 +135,9 @@ def _launch(name: str, x: torch.Tensor, out_hw, taps: np.ndarray) -> torch.Tenso
     B, H, W, C = x.shape
     lib = load_library().lib
     out = torch.empty((B, *out_hw, C), dtype=x.dtype, device=x.device)
+    plan = launch_plan(B, H, W, C, x.dtype, (x.data_ptr(), out.data_ptr()), down=name == "fir_downsample2")
     err = getattr(lib, f"{name}_launch")(
-        x.data_ptr(), out.data_ptr(), B, H, W, C, *(float(c) for c in taps), DTYPES[x.dtype],
+        x.data_ptr(), out.data_ptr(), B, H, W, C, *(float(c) for c in taps), DTYPES[x.dtype], *plan,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:

@@ -8,9 +8,13 @@ kernel) on the NCHW view, summed in float32 and rounded to ``x.dtype`` once.
 
 `upsample_2d` and `downsample_2d` at factor 2 with a 4-tap 1-D kernel (every
 recipe's [1, 3, 3, 1]) and gain 1 are the two TPU kernels
-`fir_upsample2` / `fir_downsample2`: they go through `ops/fir.py`, which
-launches the CUDA kernel for a CUDA tensor and comes back here for a CPU
-one.  Every other factor, kernel and gain stays in this module.
+`fir_upsample2` / `fir_downsample2`: where no gradient has to flow through
+the call, they go through `ops/fir.py`, which launches the CUDA kernel for a
+CUDA tensor and comes back here for a CPU one.  Where one does (grad mode on
+and ``x`` requiring grad: an NCSN++ with ``fir=True`` in training), they take
+the plain versions here, which autograd differentiates as JAX's autodiff
+does its `upfirdn2d`; the kernels have no backward.  Every other factor,
+kernel and gain stays in this module.
 
 Conv weights ``w`` are OIHW (PyTorch's layout; the JAX functions take HWIO).
 """
@@ -62,8 +66,11 @@ def upfirdn2d(x: torch.Tensor, kernel: Kernel, up: int = 1, down: int = 1, pad=(
     return h.permute(0, 2, 3, 1).to(x.dtype)
 
 
-def _routes_to_fir2(k: Optional[Kernel], factor: int, gain: float) -> bool:
-    """Whether `ops/fir.py`'s factor-2 kernels compute this resampling."""
+def _routes_to_fir2(x: torch.Tensor, k: Optional[Kernel], factor: int, gain: float) -> bool:
+    """Whether `ops/fir.py`'s factor-2 kernels compute this resampling: they
+    take it, and no gradient has to flow through it."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return False
     return factor == 2 and gain == 1.0 and k is not None and np.asarray(k).shape == (4,)
 
 
@@ -71,7 +78,7 @@ def upsample_2d(x: torch.Tensor, k: Optional[Kernel] = None, factor: int = 2, ga
     """FIR upsample of NHWC ``x`` by ``factor``."""
     if factor < 1:
         raise ValueError(f"factor must be >= 1, got {factor}")
-    if _routes_to_fir2(k, factor, gain):
+    if _routes_to_fir2(x, k, factor, gain):
         from .fir import fir_upsample2
 
         return fir_upsample2(x.contiguous(), tuple(float(v) for v in k))
@@ -89,7 +96,7 @@ def downsample_2d(x: torch.Tensor, k: Optional[Kernel] = None, factor: int = 2, 
     """FIR downsample of NHWC ``x`` by ``factor``."""
     if factor < 1:
         raise ValueError(f"factor must be >= 1, got {factor}")
-    if _routes_to_fir2(k, factor, gain):
+    if _routes_to_fir2(x, k, factor, gain):
         from .fir import fir_downsample2
 
         return fir_downsample2(x.contiguous(), tuple(float(v) for v in k))

@@ -147,3 +147,159 @@ def test_factor2_resampling_goes_through_the_kernel_wrappers(monkeypatch):
         fir.fir_downsample2(torch.zeros(1, 4, 4, 3), (1, 2, 1))
     with pytest.raises(ValueError, match="NHWC"):
         fir.fir_upsample2(torch.zeros(4, 4, 3))
+
+
+def test_a_gradient_takes_the_plain_versions(monkeypatch):
+    """Where a gradient must flow (grad mode on, ``x`` requiring grad),
+    `upsample_2d` / `downsample_2d` take their plain versions, not the
+    kernels' wrappers, and the gradient is `jax.vjp`'s of the JAX functions;
+    under `no_grad`, or for an input that needs no gradient, the wrappers
+    take the call."""
+    seen = []
+    for name in ("fir_upsample2", "fir_downsample2"):
+        real = getattr(fir, name)
+        monkeypatch.setattr(fir, name, lambda x, k, real=real, name=name: seen.append(name) or real(x, k))
+    x = _inputs((2, 8, 10, 6), seed=6)
+    g_up, g_down = _inputs((2, 16, 20, 6), seed=7), _inputs((2, 4, 5, 6), seed=8)
+    xt = torch.from_numpy(x).requires_grad_()
+    up, down = upfirdn.upsample_2d(xt, ASYMMETRIC, 2), upfirdn.downsample_2d(xt, ASYMMETRIC, 2)
+    assert seen == []
+    ((up * torch.from_numpy(g_up)).sum() + (down * torch.from_numpy(g_down)).sum()).backward()
+    _, vjp_up = jax.vjp(lambda a: jax_upfirdn.upsample_2d(a, list(ASYMMETRIC), factor=2), jnp.asarray(x))
+    _, vjp_down = jax.vjp(lambda a: jax_upfirdn.downsample_2d(a, list(ASYMMETRIC), factor=2), jnp.asarray(x))
+    _assert_close(xt.grad, vjp_up(jnp.asarray(g_up))[0] + vjp_down(jnp.asarray(g_down))[0])
+    with torch.no_grad():
+        upfirdn.upsample_2d(xt, ASYMMETRIC, 2)
+    upfirdn.downsample_2d(xt.detach(), ASYMMETRIC, 2)
+    assert seen == ["fir_upsample2", "fir_downsample2"]
+
+
+# The plans at the 20 calls of one NCSN++ forward (B=8, aligned addresses):
+# (kernel, H, C) -> (vec, run, blocks) in float32 and in bfloat16, 128
+# threads a block.  Vectors are 16 bytes where a pixel is whole 16-byte
+# vectors (C >= 64), else 8 (float32 C=6, 24 bytes) or 4 (bfloat16 C=6, 12
+# bytes); the run is 2 where a pixel is whole 32-byte sectors and the run of
+# 2 leaves 98,304 threads or more (e.g. the 8x80x80x64 upsample: 8 x 80 rows
+# x 40 runs x 16 vectors = 409,600), else 1.
+PLANS = {
+    ("fir_downsample2", 160, 64): ((4, 2, 3200), (8, 2, 1600)),
+    ("fir_downsample2", 80, 64): ((4, 2, 800), (8, 1, 800)),  # bf16 at run 2: 51,200 threads
+    ("fir_downsample2", 40, 128): ((4, 1, 800), (8, 1, 400)),
+    ("fir_downsample2", 20, 128): ((4, 1, 200), (8, 1, 100)),
+    ("fir_downsample2", 10, 256): ((4, 1, 100), (8, 1, 50)),
+    ("fir_downsample2", 160, 6): ((2, 1, 1200), (2, 1, 1200)),  # 8 x 80 x 80 x 3 = 153,600 threads
+    ("fir_downsample2", 80, 6): ((2, 1, 300), (2, 1, 300)),
+    ("fir_downsample2", 40, 6): ((2, 1, 75), (2, 1, 75)),
+    ("fir_downsample2", 20, 6): ((2, 1, 19), (2, 1, 19)),
+    ("fir_downsample2", 10, 6): ((2, 1, 5), (2, 1, 5)),
+    ("fir_upsample2", 5, 256): ((4, 1, 100), (8, 1, 50)),
+    ("fir_upsample2", 10, 256): ((4, 1, 400), (8, 1, 200)),
+    ("fir_upsample2", 20, 128): ((4, 1, 800), (8, 1, 400)),
+    ("fir_upsample2", 40, 128): ((4, 2, 1600), (8, 2, 800)),
+    ("fir_upsample2", 80, 64): ((4, 2, 3200), (8, 2, 1600)),
+    ("fir_upsample2", 5, 6): ((2, 1, 5), (2, 1, 5)),
+    ("fir_upsample2", 10, 6): ((2, 1, 19), (2, 1, 19)),
+    ("fir_upsample2", 20, 6): ((2, 1, 75), (2, 1, 75)),
+    ("fir_upsample2", 40, 6): ((2, 1, 300), (2, 1, 300)),
+    ("fir_upsample2", 80, 6): ((2, 1, 1200), (2, 1, 1200)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,h,c", sorted(PLANS))
+def test_launch_plan_at_the_ncsnpp_calls(name, h, c, dtype):
+    import chip_smoke
+
+    assert {(n, hh, cc) for n, hh, cc, _ in chip_smoke.FIR_SHAPES} == set(PLANS)
+    vec, run, blocks = PLANS[(name, h, c)][dtype == torch.bfloat16]
+    assert fir.launch_plan(8, h, h, c, dtype, (0, 512), down=name == "fir_downsample2") == (vec, run, 128, blocks)
+
+
+@pytest.mark.parametrize(
+    "args,want",
+    [
+        # odd H and W and 3 or 6 channels (the upsample): not whole vectors of 16 bytes, nor sectors
+        ((3, 5, 7, 3, torch.float32, (0, 0)), (1, 1, 128, 3)),  # 12 bytes a pixel: 4-byte vectors
+        ((3, 5, 7, 3, torch.bfloat16, (0, 0)), (1, 1, 128, 3)),  # 6 bytes: one element, 315 threads
+        ((2, 7, 9, 6, torch.float32, (0, 0)), (2, 1, 128, 3)),  # 2 x 7 x 9 x 3 = 378 threads
+        ((8, 15, 13, 64, torch.float32, (0, 0)), (4, 1, 128, 195)),  # 24,960 threads; 13,440 at run 2
+        ((8, 15, 13, 64, torch.bfloat16, (0, 0)), (8, 1, 128, 98)),
+        # an input 4 bytes past an aligned address: 4-byte vectors, so 4x (2x) the threads
+        ((8, 40, 40, 128, torch.float32, (4, 0)), (1, 2, 128, 6400)),
+        ((8, 40, 40, 128, torch.bfloat16, (4, 0)), (2, 2, 128, 3200)),
+        ((8, 20, 20, 6, torch.float32, (4, 0)), (1, 1, 128, 150)),
+        # 2 bytes off (bfloat16): one element; an output 8 bytes off: 8-byte vectors
+        ((8, 40, 40, 128, torch.bfloat16, (2, 0)), (1, 2, 128, 6400)),
+        ((8, 40, 40, 128, torch.float32, (0, 8)), (2, 2, 128, 3200)),
+    ],
+)
+def test_launch_plan_narrows_the_vector(args, want):
+    assert fir.launch_plan(*args) == want
+
+
+def test_launch_plan_refuses_calls_past_32_bit_offsets():
+    fir.launch_plan(1, 4096, 4096, 32, torch.float32, (0, 0), down=True)  # 2^29 elements an image
+    with pytest.raises(ValueError, match="32-bit"):
+        fir.launch_plan(1, 4096, 4096, 32, torch.float32, (0, 0))  # its output: 2^31
+
+
+def _walk(x, k, down, run):
+    """The kernels' arithmetic in plain PyTorch, walked the way a thread
+    walks W: every (image, row, vector) at once, each run of ``run`` pixels
+    keeping the vertical sums of the overlapping input columns (up: of
+    output rows 2t and 2t+1; down: of the 4 input rows) and taking one new
+    column (up) or two (down) a step; float32, rounded once."""
+    xf = x.float()
+    B, H, W, C = xf.shape
+    c0, c1, c2, c3 = (float(v) for v in fir.norm_taps(k, 1.0 if down else 2.0))
+    if down:
+        Ho, Wo = H // 2, W // 2
+        pad = torch.nn.functional.pad(xf, (0, 0, 0, 0, 1, 1))  # row r at r + 1
+        rows = [pad[:, a : a + 2 * Ho : 2] for a in range(4)]  # input rows 2oy - 1 + a
+
+        def column(j):
+            if not 0 <= j < W:
+                return torch.zeros(B, Ho, C)
+            return c3 * rows[0][:, :, j] + c2 * rows[1][:, :, j] + c1 * rows[2][:, :, j] + c0 * rows[3][:, :, j]
+
+        out = torch.empty(B, Ho, Wo, C)
+        for ox0 in range(0, Wo, run):
+            va, vb = column(2 * ox0 - 1), column(2 * ox0)
+            for ox in range(ox0, min(ox0 + run, Wo)):
+                vc, vd = column(2 * ox + 1), column(2 * ox + 2)
+                out[:, :, ox] = c3 * va + c2 * vb + c1 * vc + c0 * vd
+                va, vb = vc, vd
+        return out.to(x.dtype)
+    above = torch.nn.functional.pad(xf, (0, 0, 0, 0, 1, 0))[:, :H]  # row t - 1
+    below = torch.nn.functional.pad(xf, (0, 0, 0, 0, 0, 1))[:, 1:]  # row t + 1
+
+    def column(j):  # the vertical sums of output rows 2t and 2t + 1 at input column j
+        if not 0 <= j < W:
+            return torch.zeros(B, H, C), torch.zeros(B, H, C)
+        return c3 * above[:, :, j] + c1 * xf[:, :, j], c2 * xf[:, :, j] + c0 * below[:, :, j]
+
+    out = torch.empty(B, 2 * H, 2 * W, C)
+    for tx0 in range(0, W, run):
+        (ep, op), (ec, oc) = column(tx0 - 1), column(tx0)
+        for tx in range(tx0, min(tx0 + run, W)):
+            en, on = column(tx + 1)
+            out[:, 0::2, 2 * tx] = c3 * ep + c1 * ec
+            out[:, 0::2, 2 * tx + 1] = c2 * ec + c0 * en
+            out[:, 1::2, 2 * tx] = c3 * op + c1 * oc
+            out[:, 1::2, 2 * tx + 1] = c2 * oc + c0 * on
+            (ep, op), (ec, oc) = (ec, oc), (en, on)
+    return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("k", [fir.FIR_KERNEL, ASYMMETRIC])
+@pytest.mark.parametrize("run", [1, fir.RUN])
+@pytest.mark.parametrize("kind,shape", [("up", (2, 7, 9, 6)), ("up", (1, 6, 10, 3)), ("down", (2, 8, 10, 4))])
+def test_the_kernels_walk_matches_plain(kind, shape, run, k):
+    """The per-thread walk along W (`_walk`; runs that end past W
+    included) against the plain versions at 1e-6 of the largest magnitude."""
+    x = torch.from_numpy(_inputs(shape, seed=9))
+    plain = fir.fir_downsample2_plain if kind == "down" else fir.fir_upsample2_plain
+    want = plain(x, k)
+    got = _walk(x, k, kind == "down", run)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * want.abs().max().item())

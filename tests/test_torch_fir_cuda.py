@@ -1,5 +1,7 @@
 """The FIR resampling CUDA kernels against their plain PyTorch versions, on
-the card.
+the card: at the NCSN++ path's 20 calls, at inputs 4 bytes off an aligned
+address (the vector narrows), 3 channels and odd H and W; and the routing
+of `ops/upfirdn.py` (kernels without a gradient, plain versions with one).
 
 Marked ``cuda``: it skips where there is no CUDA device.  This file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
@@ -15,7 +17,7 @@ once, so they differ by at most one bfloat16 step).
 import pytest
 import torch
 
-from chip_smoke import ASYMMETRIC_FIR, FIR_SHAPES
+from chip_smoke import ASYMMETRIC_FIR, FIR_EXTRA_CASES, FIR_SHAPES
 from conditional_score_diffusion_tpu_torch.ops import fir
 from conditional_score_diffusion_tpu_torch.ops.upfirdn import downsample_2d, upsample_2d
 
@@ -50,6 +52,41 @@ def test_kernel_matches_plain(device, name, h, c, calls, dtype, k):
     torch.cuda.synchronize()
     assert kernel.launches == launches + 1
     _check(got, getattr(fir, f"{name}_plain")(x, k), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,b,h,w,c,offset", FIR_EXTRA_CASES)
+def test_offset_views_odd_shapes_and_three_channels(device, name, b, h, w, c, offset, dtype):
+    """An input whose data starts ``offset`` bytes past an aligned address
+    (the plan's vector narrows to 4 bytes), 3 channels, odd H and W."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    skip = offset // item
+    g = torch.Generator(device=device).manual_seed(h * w + c)
+    buf = (torch.randn(b * h * w * c + skip, generator=g, device=device) * 1.5 + 0.3).to(dtype)
+    x = buf[skip:].view(b, h, w, c)
+    plan = fir.launch_plan(b, h, w, c, dtype, (x.data_ptr(), 0), down=name == "fir_downsample2")
+    assert not offset or plan.vec * item == 4
+    kernel = getattr(fir, name)
+    launches = kernel.launches
+    got = kernel(x)
+    torch.cuda.synchronize()
+    assert kernel.launches == launches + 1
+    _check(got, getattr(fir, f"{name}_plain")(x), dtype)
+
+
+@pytest.mark.cuda
+def test_a_backward_takes_the_plain_versions(device):
+    """With a gradient to carry, `upsample_2d` / `downsample_2d` launch no
+    kernel and the gradient is the plain version's."""
+    x = torch.randn(2, 12, 10, 8, device=device, requires_grad=True)
+    up, down = fir.fir_upsample2.launches, fir.fir_downsample2.launches
+    (upsample_2d(x, (1, 3, 3, 1), 2).square().sum() + downsample_2d(x, (1, 3, 3, 1), 2).square().sum()).backward()
+    xp = x.detach().clone().requires_grad_()
+    (fir.fir_upsample2_plain(xp).square().sum() + fir.fir_downsample2_plain(xp).square().sum()).backward()
+    torch.cuda.synchronize()
+    assert (fir.fir_upsample2.launches, fir.fir_downsample2.launches) == (up, down)
+    _check(x.grad, xp.grad, torch.float32)
 
 
 @pytest.mark.cuda

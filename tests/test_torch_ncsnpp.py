@@ -12,7 +12,9 @@ and on in both frameworks (JAX: Pallas in interpret mode; the port: the
 plain versions a CPU tensor takes).  Tolerance 5e-4, the JAX package's bound
 for a same-weights forward; the port's kernel path against its unfused path
 2e-5 of the largest magnitude; the 3-step KxSR sampler, fed the JAX key
-chain's noise, 1e-4 of its largest magnitude.
+chain's noise, 1e-4 of its largest magnitude; every parameter's gradient of
+a loss on the output of the FIR models against `jax.grad`, 1e-4 of each
+tensor's largest magnitude (`_torch_port_toy.hold_gradients`).
 """
 
 import collections
@@ -23,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_toy import Replay, jax_sampler_draws, randomize_params, reset_jax_dispatch
+from _torch_port_toy import Replay, hold_gradients, jax_sampler_draws, randomize_params, reset_jax_dispatch
 from conditional_score_diffusion_tpu.configs import base as jax_base
 from conditional_score_diffusion_tpu.configs.srflow import df2k_config as jax_df2k_config
 from conditional_score_diffusion_tpu.models import init_model
@@ -320,3 +322,65 @@ def test_kxsr_sampler_matches_jax(kxsr):
     got, _ = tfn(noise, model, torch.from_numpy(y))
     assert not noise.draws and got.shape == shape and np.isfinite(got.numpy()).all()
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.parametrize(
+    "case", [c for c in CASES if c[0]] + [KXSR], ids=["-".join(map(str, c)) for c in CASES if c[0]] + ["kxsr"]
+)
+def test_fir_model_gradients_match_jax_grad(case, monkeypatch):
+    """An NCSN++ with ``fir=True`` takes a gradient: every parameter's
+    gradient of a weighted sum of its output (train mode, dropout 0) against
+    `jax.grad` of the JAX model's.  Where a gradient flows, the factor-2
+    resamplings take their plain versions, so `ops/fir.py` sees only the
+    calls whose input needs none (the raw input's pyramid); the same forward
+    under `no_grad` calls `ops/fir.py` where the JAX model calls its FIR
+    functions."""
+    jconfig, tconfig = configs(case)
+    for c in (jconfig, tconfig):
+        c.model.dropout = 0.0
+    module, params = jax_params(jconfig)
+    x, labels = inputs(case)
+    rng = np.random.RandomState(5)
+    weights = {k: rng.randn(*v.shape).astype(np.float32) for k, v in as_dict(x).items()}
+    weights = weights if isinstance(x, dict) else {"out": weights["out"]}
+    jax_calls, torch_calls, grad_inputs = collections.Counter(), collections.Counter(), []
+    from conditional_score_diffusion_tpu.models import layerspp as jax_layerspp
+
+    def spy(counter, name, fn):
+        def wrapped(a, *args, **kwargs):
+            counter[(name, tuple(a.shape))] += 1
+            if torch.is_tensor(a) and torch.is_grad_enabled():
+                grad_inputs.append(a.requires_grad)
+            return fn(a, *args, **kwargs)
+
+        return wrapped
+
+    for name, jname in (("fir_upsample2", "upsample_2d"), ("fir_downsample2", "downsample_2d")):
+        monkeypatch.setattr(jax_layerspp, jname, spy(jax_calls, name, getattr(jax_layerspp, jname)))
+        monkeypatch.setattr(fir, name, spy(torch_calls, name, getattr(fir, name)))
+
+    def jax_loss(p):
+        out = as_dict(module.apply({"params": p}, x, labels, train=True))
+        return sum(jnp.sum(out[k] * weights[k]) for k in weights)
+
+    try:
+        grads = jax.jit(jax.grad(jax_loss))(params)
+    finally:
+        reset_jax_dispatch()
+    want = flax_to_state_dict(jax.device_get(grads))
+
+    model = create_model(tconfig, device="cpu").train()
+    model.load_state_dict(flax_to_state_dict(params), strict=True)
+    xt = {k: torch.from_numpy(v) for k, v in x.items()} if isinstance(x, dict) else torch.from_numpy(x)
+    out = as_dict(model(xt, torch.from_numpy(labels)))
+    sum((out[k] * torch.from_numpy(weights[k])).sum() for k in weights).backward()
+    got = {n: p.grad if p.grad is not None else torch.zeros_like(p) for n, p in model.named_parameters()}
+    frozen = set(want) - set(got)  # the Fourier projection's W: a buffer here, stop_gradient in JAX
+    assert frozen <= {n for n, _ in model.named_buffers()} and all(not want[n].any() for n in frozen)
+    hold_gradients(got, {n: want[n] for n in got}, 1e-4)
+    assert not any(grad_inputs)  # no gradient-carrying input reached ops/fir.py
+
+    torch_calls.clear()
+    with torch.no_grad():
+        model(xt, torch.from_numpy(labels))
+    assert torch_calls == jax_calls
