@@ -107,7 +107,42 @@ Phases, each printing its own line with its seconds:
    wrote, its metrics printed; each draw's PSNR from the 8-bit PNGs, with
    the rounding's 1/12 level^2 taken out of each image's MSE, within 0.1 dB
    of the harness's (the raw difference printed beside it).
-10. result: a JSON line of the kernels, the nvidia-smi line, and last
+10. main (the paper's four other estimators, new): VS-CMDE (``ours_DV``),
+   slow VS-CMDE (``ours_slowDV``), CDiffE (``song``) and CDE (``sr3``), each
+   on its texture160 recipe with the flagship U-Net at full width (CDE:
+   `ddpm_paired_SR3`, one VE SDE, y clean), seeded N(0, 0.02) weights,
+   texture160 test batch 0 (B=8): the bfloat16 sampler with fused_block and
+   fused_tail, 20 steps, sigma_y for VS-CMDE as its schedule leaves it at
+   ``reach_target_steps``, after an untimed 2-step run; kernels 1-3 counted
+   exactly (calls per forward on the meta device, `forward_calls`, which
+   must be the flagship's, at the sites phase 3 checked).  For CDE and
+   VS-CMDE first the kernels on against off as in phase 4.  Then
+   `Trainer.fit(5)`, B=16, float32, kernel 4 on, first checked against its
+   plain version at each train-step shape phase 3 did not check (CDE's
+   3-channel output conv: forward 96->3, dx 3->96): finite train_loss,
+   kernel 4 counted exactly, VS-CMDE's logged sigma_min_y / sigma_max_y at
+   every step equal to `sigma_y_at_step`.
+11. main (the unconditional VE NCSN++, new): `texture160_unconditional_ncsnpp`
+   (`unconditional_pkl_config(128)` on texture160: NCSN++ nf=128, FIR,
+   BigGAN resblocks), B=8, float32, seeded weights: the FIR kernels against
+   their plain versions at the path's six shapes (`FIR_REL_TOL`) and on a
+   3-step sample (1e-4) whose FIR counters read their calls per forward
+   x 2 x 3; `get_sampling_fn` with reverse_diffusion + langevin, 20 steps,
+   the FIR counters at their calls per forward x 2 x 20; 3-step runs of
+   ancestral_sampling and ald; `show_evolution` on 5 steps, (5, 8, 128,
+   128, 3), its last frame the final x of the same run without frames
+   (1e-6), consecutive frames different; `Trainer.fit(3)` through
+   `unpaired_PKLDataset` at B=8 (every FIR call carries a gradient and
+   takes its plain version: counters 0).
+12. main (DDPM++ under VP and sub-VP, new): `cifar10_vp_config` at 32px,
+   B=64, seeded weights: euler_maruyama + none, 20 steps (after an untimed
+   2-step run); 3-step runs with
+   langevin and (VP) ancestral_sampling (sub-VP refuses it, as JAX does);
+   one Langevin step's size against (snr |z| / |score|)^2 2 alpha with
+   alpha = alphas[timestep] under VP (1e-5); a loss and backward with finite
+   gradients; no kernel runs, so every counter reads 0.
+13. result: a JSON line of the kernels (with each one's launches on the
+   paths of phases 10-12), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -135,11 +170,17 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from conditional_score_diffusion_tpu_torch.configs import (  # noqa: E402
+    cifar10_vp_config,
     texture160_kxsr_ncsnpp_block_config,
     texture160_kxsr_ncsnpp_config,
     texture160_sr_cmde_bf16_block_config,
     texture160_sr_cmde_config,
+    texture160_sr_cde_config,
+    texture160_sr_cdiffe_config,
     texture160_sr_cmde_conv3x3_config,
+    texture160_sr_vscmde_config,
+    texture160_sr_vscmde_slow_config,
+    texture160_unconditional_ncsnpp_config,
     texture64_sr_cmde_test_config,
 )
 from conditional_score_diffusion_tpu_torch.data.pkl_datasets import PKLDataModule, iter_test_batches  # noqa: E402
@@ -155,12 +196,17 @@ from conditional_score_diffusion_tpu_torch.ops import conv3x3, fir, fused_act, f
 from conditional_score_diffusion_tpu_torch.ops.fused_tail import conv3x3_nhwc  # noqa: E402
 from conditional_score_diffusion_tpu_torch.ops.upfirdn import setup_kernel  # noqa: E402
 from conditional_score_diffusion_tpu_torch.profile_sampler import plain_versions, sampler_sde  # noqa: E402
+from conditional_score_diffusion_tpu_torch.losses import build_loss_fn  # noqa: E402
 from conditional_score_diffusion_tpu_torch.sampling import (  # noqa: E402
     get_conditional_sampling_fn,
+    get_corrector,
     get_pc_conditional_sampler,
+    get_sampling_fn,
 )
-from conditional_score_diffusion_tpu_torch.sde import batch_mul, build_sde  # noqa: E402
+from conditional_score_diffusion_tpu_torch.sde import VPSDE, batch_mul, build_sde, is_multispeed  # noqa: E402
+from conditional_score_diffusion_tpu_torch.sde.factory import is_conditional_config  # noqa: E402
 from conditional_score_diffusion_tpu_torch.training.checkpoint import CheckpointManager  # noqa: E402
+from conditional_score_diffusion_tpu_torch.training.schedules import is_decreasing_variance, sigma_y_at_step  # noqa: E402
 from conditional_score_diffusion_tpu_torch.training.state import create_train_state  # noqa: E402
 from conditional_score_diffusion_tpu_torch.training.steps import make_train_step  # noqa: E402
 from conditional_score_diffusion_tpu_torch.training.trainer import Trainer, read_scalars, to_device  # noqa: E402
@@ -205,7 +251,7 @@ NCSNPP_BLOCK_SHAPES = [
 ]
 # Kernels 2-3 at the sites of the trained texture64 model with fused_block
 # on (B=16; `texture64_agreement` runs it so): (kernel, H, Ca, Cb, Cout,
-# calls per forward), counted on the meta device by `block_call_shapes`.
+# calls per forward), counted on the meta device by `forward_calls`.
 TEXTURE64_BLOCK_SHAPES = [
     ("resblock_fused", 8, 128, 0, 128, 2),
     ("resblock_fused", 4, 128, 0, 192, 1),  # NIN shortcut
@@ -313,6 +359,29 @@ HARNESS_BAND = {"psnr": 0.5, "ssim": 0.015, "consistency": 1.5, "diversity": 0.2
 PIPELINE_PSNR_TOL = 0.1
 QUANTIZATION_MSE = 1.0 / 12.0  # level^2
 TEXTURE64_AGREE_TOL = 1e-4
+
+# The paper's four other estimators on the texture160 flagship recipes:
+# their bfloat16 samplers with fused_block and fused_tail (the flagship's
+# kernel calls per forward, `PER_FORWARD_BLOCK_PATH`), cut to 20 of 1000
+# steps; CDE and VS-CMDE also with the kernels on against off; Trainer.fit
+# for 5 steps with kernel 4.  Then the unconditional VE NCSN++ (FIR kernels)
+# and DDPM++ under VP and sub-VP (no kernel), each at its recipe's full width.
+ESTIMATORS = [
+    ("ours_DV", texture160_sr_vscmde_config),
+    ("ours_slowDV", texture160_sr_vscmde_slow_config),
+    ("song", texture160_sr_cdiffe_config),
+    ("sr3", texture160_sr_cde_config),
+]
+ESTIMATOR_AGREEMENT = ("sr3", "ours_DV")
+ESTIMATOR_STEPS, ESTIMATOR_TRAIN_STEPS = 20, 5
+WARMUP_STEPS = 2  # an untimed sample before each estimator's and VP's timed one
+UNCOND_BATCH, UNCOND_STEPS, UNCOND_SHORT, UNCOND_EVOLUTION, UNCOND_TRAIN_STEPS = 8, 20, 3, 5, 3
+VP_BATCH, VP_STEPS, VP_SHORT = 64, 20, 3
+FIR_AGREE_TOL = 1e-4
+EVOLUTION_TOL = 1e-6  # the same kernels on the same inputs: only a library's choice of algorithm may differ
+# FIR calls of one unconditional NCSN++ forward (128px, B=8; BigGAN down at
+# 128/64/32, up at 16/32/64, h and x each), none at the DF2K path's shapes.
+PER_FORWARD_UNCOND_PATH = {"fir_upsample2": 6, "fir_downsample2": 6}
 
 WRAPPERS = {
     "gn_silu_conv3x3": fused_tail.gn_silu_conv3x3,
@@ -537,36 +606,72 @@ def check_blocks():
     return rows
 
 
-def block_call_shapes(config, batch, inputs=None):
-    """Counter of the whole-block kernels' calls in one eval forward of
-    ``config``'s model on the meta device, by (kernel, H, Ca, Cb, Cout);
-    ``inputs`` the model's {"x", "y"} on the meta device (default: both
-    square at the recipe's image size)."""
+def forward_calls(config, batch, inputs=None):
+    """Counter of the kernel wrappers' calls in one eval forward of
+    ``config``'s model on the meta device, by (kernel, *shape): the fused
+    tail by (H, Cout), the whole-block kernels by (H, Ca, Cb, Cout), the FIR
+    kernels by their input's (H, W, C).  ``inputs``: the model's input on the
+    meta device (default square at the recipe's image size: {"x", "y"} for a
+    conditional model, one tensor for an unconditional one)."""
     calls = collections.Counter()
 
-    def record(name):
+    def record(name, key, out_shape):
         def fn(x, *args, **kwargs):
-            cb = args[0].shape[-1] if name == "resblock_fused_split" else 0
-            calls[(name, x.shape[1], x.shape[-1], cb, kwargs["w0"].shape[0])] += 1
-            return torch.empty(*x.shape[:-1], kwargs["w0"].shape[0], device=x.device, dtype=x.dtype)
+            calls[(name, *key(x, args, kwargs))] += 1
+            return torch.empty(out_shape(x, args, kwargs), device=x.device, dtype=x.dtype)
 
         return fn
 
-    real = {name: getattr(layers, name) for name in ("resblock_fused", "resblock_fused_split", "gn_silu_conv3x3")}
-    layers.resblock_fused = record("resblock_fused")
-    layers.resblock_fused_split = record("resblock_fused_split")
-    layers.gn_silu_conv3x3 = lambda x, w, *a, **k: torch.empty(*x.shape[:-1], w.shape[0], device=x.device,
-                                                               dtype=x.dtype)
+    cout = lambda x, a, k: (*x.shape[:-1], k["w0"].shape[0])  # noqa: E731
+    patches = [
+        (layers, "gn_silu_conv3x3", lambda x, a, k: (x.shape[1], a[0].shape[0]),
+         lambda x, a, k: (*x.shape[:-1], a[0].shape[0])),
+        (layers, "resblock_fused", lambda x, a, k: (x.shape[1], x.shape[-1], 0, k["w0"].shape[0]), cout),
+        (layers, "resblock_fused_split", lambda x, a, k: (x.shape[1], x.shape[-1], a[0].shape[-1], k["w0"].shape[0]),
+         cout),
+        (fir, "fir_upsample2", lambda x, a, k: tuple(x.shape[1:]),
+         lambda x, a, k: (x.shape[0], 2 * x.shape[1], 2 * x.shape[2], x.shape[3])),
+        (fir, "fir_downsample2", lambda x, a, k: tuple(x.shape[1:]),
+         lambda x, a, k: (x.shape[0], x.shape[1] // 2, x.shape[2] // 2, x.shape[3])),
+    ]
+    real = [(mod, name, getattr(mod, name)) for mod, name, *_ in patches]
+    for mod, name, key, out_shape in patches:
+        setattr(mod, name, record(name, key, out_shape))
     try:
         model = create_model(config, "meta")
         if inputs is None:
             s = config.data.image_size
-            inputs = dict.fromkeys(("x", "y"), torch.empty(batch, s, s, 3, device="meta"))
+            x = torch.empty(batch, s, s, 3, device="meta")
+            inputs = {"x": x, "y": x} if is_conditional_config(config) else x
         with torch.no_grad():
             model(inputs, torch.empty(batch, device="meta"))
     finally:
-        for name, fn in real.items():
-            setattr(layers, name, fn)
+        for mod, name, fn in real:
+            setattr(mod, name, fn)
+    return calls
+
+
+def per_name(calls):
+    """A `forward_calls` counter summed by kernel."""
+    out = collections.Counter()
+    for (name, *_), n in calls.items():
+        out[name] += n
+    return dict(out)
+
+
+def sites(calls, *names):
+    """The entries of a `forward_calls` counter for ``names``; with one name,
+    keyed by the shape alone."""
+    picked = {k: n for k, n in calls.items() if k[0] in names}
+    return {k[1:]: n for k, n in picked.items()} if len(names) == 1 else picked
+
+
+def flagship_block_path_calls():
+    """`forward_calls` of one forward of the bfloat16 block path, from the
+    site tables the kernel phase checks: `BLOCK_SHAPES`, and the tails
+    `TAIL_SHAPES` gives that path."""
+    calls = collections.Counter({(name, *shape): n for name, *shape, n in BLOCK_SHAPES})
+    calls.update({("gn_silu_conv3x3", h, c): n for h, c, _, n in TAIL_SHAPES if n})
     return calls
 
 
@@ -732,6 +837,18 @@ def check_fir_cases():
                         dtype, FIR_REL_TOL)
 
 
+def check_fir_sites(calls, label, batch):
+    """Both FIR kernels against plain at each (H, W, C) of a `forward_calls`
+    counter, float32 and bfloat16, at `FIR_REL_TOL`; checked, not timed."""
+    for name, h, w, c in sorted(k for k in calls if k[0] in ("fir_upsample2", "fir_downsample2")):
+        kernel, plain = WRAPPERS[name], getattr(fir, f"{name}_plain")
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device="cuda").manual_seed(h * c + 3)
+            x = (torch.randn(batch, h, w, c, generator=g, device="cuda") * 1.5 + 0.3).to(dtype)
+            check_close(f"{label} {name} {batch}x{h}x{w}x{c} {dname(dtype)}", kernel(x), plain(x), dtype,
+                        FIR_REL_TOL)
+
+
 # ---- the 3x3 conv (kernels 4 and 5) ------------------------------------------
 
 
@@ -753,7 +870,7 @@ def conv_call_shapes(config, batch=TRAIN_BATCH):
         x = torch.empty(batch, s, s, 3, device="meta")
         out = model({"x": x, "y": x}, torch.empty(batch, device="meta"))
         phase[0] = "dx"
-        (out["x"].sum() + out["y"].sum()).backward()
+        sum(v.sum() for v in as_outputs(out).values()).backward()
     finally:
         conv3x3._conv3x3_nhwc = real
     return calls
@@ -799,25 +916,33 @@ def time_conv_row(row, h, cin, cout, dtype, kernel, plain, library, batch=TRAIN_
     return row
 
 
-def check_conv(shapes):
-    """Kernel 4 against its plain version at every distinct forward and dx
-    shape of the train step (B=16), float32 and bfloat16 (the dx conv is the
-    forward entry on the output gradient with rotated weights, no bias),
-    timed; its autograd dx against F.conv2d's at two shapes; kernel 5's
-    (H, W, B, C) entry at two shapes.  Returns (conv rows, hmajor rows)."""
+def check_conv_shapes(shapes, seed=1000, site=None):
+    """Kernel 4 against its plain version at each (phase, H, Cin, Cout) of
+    ``shapes`` (B=16), float32 and bfloat16 (the dx conv is the forward
+    entry on the output gradient with rotated weights, no bias), timed;
+    returns the rows (tagged with ``site`` where one is given)."""
     rows = []
     for i, ((ph, h, cin, cout), calls) in enumerate(sorted(shapes.items())):
         for dtype in (torch.float32, torch.bfloat16):
-            x, w, bias = conv_inputs(h, cin, cout, dtype, seed=1000 + i)
+            x, w, bias = conv_inputs(h, cin, cout, dtype, seed=seed + i)
             b = bias if ph == "forward" else None
-            label = f"conv3x3 {ph} {TRAIN_BATCH}x{h}x{h}x{cin}->{cout} {dname(dtype)}"
+            label = f"conv3x3 {ph} {TRAIN_BATCH}x{h}x{h}x{cin}->{cout} {dname(dtype)}" + (f" ({site})" if site else "")
             err = check_close(label, conv3x3.conv3x3(x, w, b), conv3x3.conv3x3_plain(x, w, b), dtype)
             row = dict(phase=ph, shape=f"{TRAIN_BATCH}x{h}x{h}x{cin}->{cout}", dtype=dname(dtype),
-                       calls_per_step=calls, max_abs_err=err)
+                       calls_per_step=calls, max_abs_err=err, **({"site": site} if site else {}))
             rows.append(time_conv_row(
                 row, h, cin, cout, dtype, lambda: conv3x3.conv3x3(x, w, b),
                 lambda: conv3x3.conv3x3_plain(x, w, b), lambda: conv_library(x, w, b),
             ))
+    return rows
+
+
+def check_conv(shapes):
+    """Kernel 4 at every distinct forward and dx shape of the flagship's
+    train step (`check_conv_shapes`); its autograd dx against F.conv2d's at
+    two shapes; kernel 5's (H, W, B, C) entry at two shapes.  Returns (conv
+    rows, hmajor rows)."""
+    rows = check_conv_shapes(shapes)
     for h, cin, cout in ROTATION_SHAPES:
         x, w, bias = conv_inputs(h, cin, cout, torch.float32, seed=h * cin)
         g = torch.randn(TRAIN_BATCH, h, h, cout, device="cuda")
@@ -979,6 +1104,7 @@ def run_trainer(label, config, steps, expected, evals, restore=True):
         scalars = read_scalars(os.path.join(log_path, "scalars.jsonl"))
         last = {tag: (value, step) for tag, value, step in scalars}
         losses = [v for tag, v, _ in scalars if tag == "train_loss"]
+        sigma_y = {(tag, step): v for tag, v, step in scalars if tag in ("sigma_min_y", "sigma_max_y")}
         result = dict(
             path=label, steps=steps, wall_s=wall, peak_gib=peak, launches=launches, expected_launches=expected,
             train_loss=losses, eval_loss=history["eval_loss"],
@@ -987,6 +1113,13 @@ def run_trainer(label, config, steps, expected, evals, restore=True):
         )
         ok = all(math.isfinite(v) for v in losses + [v for _, v in history["eval_loss"]])
         ok = ok and len(history["eval_loss"]) == evals
+        if is_decreasing_variance(config):  # VS-CMDE logs sigma_y as its schedule gives it, at every log
+            logged = sorted({step for _, step in sigma_y})
+            schedule = {s: sigma_y_at_step(config, s) for s in logged}
+            result["sigma_y"] = {s: {"sigma_min_y": sigma_y[("sigma_min_y", s)], "sigma_max_y": sigma_y[("sigma_max_y", s)]}
+                                 for s in logged}
+            ok = ok and logged == list(range(1, steps + 1)) and all(
+                (sigma_y[("sigma_min_y", s)], sigma_y[("sigma_max_y", s)]) == schedule[s] for s in logged)
         if restore:
             again = Trainer(config, os.path.join(log_path, "restored"), checkpoint_path=trainer.ckpt.directory)
             a, b = trainer.state, again.state
@@ -1007,12 +1140,13 @@ def run_trainer(label, config, steps, expected, evals, restore=True):
         f" {result['ms_per_step']:.3f} ms/step, {result['train_imgs_per_sec']:.3f} images/s; peak {peak:.3f} GiB;"
         f" train_loss {['%.5f' % v for v in losses]}, eval_loss {history['eval_loss']};"
         f" checkpoint restored exactly: {result.get('checkpoint_restored_exactly', 'not checked')};"
-        f" one step: data {result['data_ms']:.3f} ms (host), forward+loss {result['forward_loss_ms']:.3f} ms,"
+        + (f" sigma_y as scheduled at steps 1-{steps}: last {result['sigma_y'][steps]};" if "sigma_y" in result else "")
+        + f" one step: data {result['data_ms']:.3f} ms (host), forward+loss {result['forward_loss_ms']:.3f} ms,"
         f" backward {result['backward_ms']:.3f} ms, optimizer+EMA {result['optimizer_ema_ms']:.3f} ms;"
         f" launches {launches} (expected {expected}) {'ok' if ok and launches == expected else 'FAIL'}",
     )
     if not ok:
-        raise RuntimeError(f"{label}: losses not finite, eval or checkpoint wrong")
+        raise RuntimeError(f"{label}: losses not finite, eval, checkpoint or sigma_y wrong")
     if launches != expected:
         raise RuntimeError(f"{label}: launches {launches}, expected {expected}")
     return result
@@ -1033,6 +1167,12 @@ def pc_sampler(config, sde, eps, shape, p_steps):
         sde, shape, s.predictor, s.corrector, snr=s.snr, p_steps=p_steps,
         c_steps=s.n_steps_each, denoise=s.noise_removal, eps=eps,
     )
+
+
+def as_outputs(out):
+    """A network's output as a dict: a paired model's as it is, one tensor
+    (CDE's score of x) under the key ``x``."""
+    return out if isinstance(out, dict) else {"x": out}
 
 
 def rel_err(got, want):
@@ -1068,9 +1208,11 @@ def agreement(label, config_on, config_off, model, batch, compute_dtype, tol, pl
     sde, eps = sampler_sde(config_on)
     vec_t = torch.full((BATCH,), 0.5, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(2)
+    sdes = sde if is_multispeed(sde) else {"x": sde}  # one SDE (CDE): y enters clean
     x_t, y_t = (
-        sde[k].marginal_prob(batch[k], vec_t)[0]
-        + batch_mul(sde[k].marginal_prob(batch[k], vec_t)[1], torch.randn(batch[k].shape, generator=g, device="cuda"))
+        sdes[k].marginal_prob(batch[k], vec_t)[0]
+        + batch_mul(sdes[k].marginal_prob(batch[k], vec_t)[1], torch.randn(batch[k].shape, generator=g, device="cuda"))
+        if k in sdes else batch[k]
         for k in ("x", "y")
     )
     short = pc_sampler(config_on, sde, eps, tuple(batch["x"].shape), p_steps=3)
@@ -1079,7 +1221,7 @@ def agreement(label, config_on, config_off, model, batch, compute_dtype, tol, pl
     def run(m):
         score = score_fn(m, sde, compute_dtype)(x_t, y_t, vec_t)
         sample, _ = short(torch.Generator(device="cuda").manual_seed(1), score_fn(m, sde, compute_dtype), batch["y"])
-        return score, sample, get_model_fn(m, compute_dtype=compute_dtype)(inputs, labels)
+        return score, sample, as_outputs(get_model_fn(m, compute_dtype=compute_dtype)(inputs, labels))
 
     score_on, s_got, raw_on = run(model)
     with plain_versions() if plain_off else contextlib.nullcontext():
@@ -1088,7 +1230,7 @@ def agreement(label, config_on, config_off, model, batch, compute_dtype, tol, pl
         path=label, tol=tol,
         score_rel_err=rel_err(score_on, score_off), score_norm_rel_err=norm_rel_err(score_on, score_off),
         sample_rel_err=rel_err(s_got, s_want),
-        raw_forward_rel_err=max(rel_err(raw_on[k], raw_off[k]) for k in inputs),
+        raw_forward_rel_err=max(rel_err(raw_on[k], raw_off[k]) for k in raw_on),
     )
     msg = (
         f"score rel err {r['score_rel_err']:.3e} (norm {r['score_norm_rel_err']:.3e}), 3-step sample rel err"
@@ -1100,14 +1242,14 @@ def agreement(label, config_on, config_off, model, batch, compute_dtype, tol, pl
     else:
         with plain_versions():
             score_plain = score_fn(model, sde, compute_dtype)(x_t, y_t, vec_t)
-            raw_plain = get_model_fn(model, compute_dtype=compute_dtype)(inputs, labels)
-        ref = get_model_fn(model_off)(inputs, labels)  # the float32 network
+            raw_plain = as_outputs(get_model_fn(model, compute_dtype=compute_dtype)(inputs, labels))
+        ref = as_outputs(get_model_fn(model_off)(inputs, labels))  # the float32 network
         r.update(
             score_floor_rel_err=rel_err(score_on, score_plain),
             score_floor_norm_rel_err=norm_rel_err(score_on, score_plain),
-            raw_forward_floor_rel_err=max(rel_err(raw_on[k], raw_plain[k]) for k in inputs),
-            raw_on_vs_float32=max(norm_rel_err(raw_on[k], ref[k]) for k in inputs),
-            raw_off_vs_float32=max(norm_rel_err(raw_off[k], ref[k]) for k in inputs),
+            raw_forward_floor_rel_err=max(rel_err(raw_on[k], raw_plain[k]) for k in raw_on),
+            raw_on_vs_float32=max(norm_rel_err(raw_on[k], ref[k]) for k in raw_on),
+            raw_off_vs_float32=max(norm_rel_err(raw_off[k], ref[k]) for k in raw_on),
         )
         ok = (
             r["score_norm_rel_err"] <= tol
@@ -1126,9 +1268,10 @@ def agreement(label, config_on, config_off, model, batch, compute_dtype, tol, pl
     return r
 
 
-def run_sampler(label, sample, per_forward, steps):
-    """Run ``sample()`` with every kernel counter at 0; check the counts and
-    the samples."""
+def run_sampler(label, sample, per_forward, steps, shape=(BATCH, 160, 160, 3), evals_per_step=2):
+    """Run ``sample()`` with every kernel counter at 0; check the counts
+    (``per_forward`` x ``evals_per_step`` x ``steps``) and the samples'
+    shape and values."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in WRAPPERS.values():
@@ -1138,22 +1281,22 @@ def run_sampler(label, sample, per_forward, steps):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = {name: fn.launches for name, fn in WRAPPERS.items()}
-    expected = {name: per_forward.get(name, 0) * 2 * steps for name in WRAPPERS}
+    expected = {name: per_forward.get(name, 0) * evals_per_step * steps for name in WRAPPERS}
     finite = bool(torch.isfinite(samples).all())
     result = dict(
-        path=label, steps=steps, wall_s=wall, images_per_s=BATCH / wall,
-        ms_per_score_eval=wall / (2 * steps) * 1e3,
+        path=label, steps=steps, wall_s=wall, images_per_s=shape[0] / wall,
+        ms_per_score_eval=wall / (evals_per_step * steps) * 1e3,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
     )
     phase(
         "main", t,
-        f"{label}: {steps}-step conditional PC sampler: {wall:.3f} s wall, {result['images_per_s']:.4f} images/s,"
+        f"{label}: {steps}-step PC sampler: {wall:.3f} s wall, {result['images_per_s']:.4f} images/s,"
         f" {result['ms_per_score_eval']:.3f} ms per score evaluation, peak {result['peak_gib']:.3f} GiB;"
         f" samples {tuple(samples.shape)} finite={finite} range [{samples.min().item():.3f},"
         f" {samples.max().item():.3f}]; launches {launches} (expected {expected})",
     )
-    if tuple(samples.shape) != (8, 160, 160, 3) or not finite:
-        raise RuntimeError(f"{label}: samples are not finite or not shaped (8, 160, 160, 3)")
+    if tuple(samples.shape) != tuple(shape) or not finite:
+        raise RuntimeError(f"{label}: samples are not finite or not shaped {tuple(shape)}")
     if launches != expected:
         raise RuntimeError(f"{label}: launches {launches}, expected {expected}")
     return result
@@ -1279,28 +1422,6 @@ def harness_config(base_log_dir):
     config.eval.draws = list(HARNESS_DRAWS)
     config.eval.p_steps = HARNESS_STEPS
     return config
-
-
-def tail_call_shapes(config, batch):
-    """Counter of the fused tail's calls in one eval forward of ``config``'s
-    model on the meta device, by (H, Cout)."""
-    calls = collections.Counter()
-    real = layers.gn_silu_conv3x3
-
-    def record(x, w, *args, **kwargs):
-        calls[(x.shape[1], w.shape[0])] += 1
-        return torch.empty(*x.shape[:-1], w.shape[0], device=x.device, dtype=x.dtype)
-
-    layers.gn_silu_conv3x3 = record
-    try:
-        model = create_model(config, "meta")
-        s = config.data.image_size
-        x = torch.empty(batch, s, s, 3, device="meta")
-        with torch.no_grad():
-            model({"x": x, "y": x}, torch.empty(batch, device="meta"))
-    finally:
-        layers.gn_silu_conv3x3 = real
-    return calls
 
 
 def check_harness_tails(shapes):
@@ -1489,6 +1610,235 @@ def run_harness(per_forward_tail):
     return result
 
 
+# ---- the paper's other estimators, the unconditional and the VP samplers ---
+
+
+def datasets_dir(config):
+    config.data.base_dir = os.path.join(REPO, "datasets")
+    return config
+
+
+def run_estimator(approach, recipe, checked_conv):
+    """One estimator on the texture160 recipe at the flagship's width: its
+    bfloat16 sampler with fused_block and fused_tail (kernels 1-3, counted
+    exactly), for CDE and VS-CMDE its kernels on against off, and
+    `Trainer.fit` in float32 with kernel 4 (counted exactly; VS-CMDE's
+    logged sigma_y held to its schedule), kernel 4 first checked against
+    its plain version at each train-step shape not in ``checked_conv``
+    (which gains them).  Returns (sampler, trainer, agreement, conv rows)."""
+    t = time.perf_counter()
+    config = datasets_dir(recipe())
+    config.model.fused_block = True
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(iter_test_batches(config)).items()}
+    model = init_model_random(config, seed=config.seed, device="cuda")
+    sde, eps = sampler_sde(config)
+    calls = forward_calls(config, BATCH)
+    per_forward = per_name(calls)
+    sigma_y = sde["y"].sigma_max if is_multispeed(sde) else None
+    phase(
+        "setup", t,
+        f"{approach} ({config.model.name}): texture160 batch {tuple(batch['y'].shape)},"
+        f" {'sigma_y,max %.4f' % sigma_y if sigma_y is not None else 'one VE SDE, y clean'};"
+        f" kernel calls per forward {per_forward}",
+    )
+    if calls != flagship_block_path_calls():
+        raise RuntimeError(f"{approach}: kernel calls per forward {dict(calls)}, expected the flagship's, at the"
+                           " sites the kernel phase checked")
+    agree = []
+    if approach in ESTIMATOR_AGREEMENT:
+        off = datasets_dir(recipe())
+        off.model.fused_tail = False
+        agree = [
+            agreement(f"float32 {approach} block path", config, off, model, batch, None, REL_TOL[torch.float32]),
+            agreement(f"bfloat16 {approach} block path", config, off, model, batch, torch.bfloat16, BF16_AGREE_TOL),
+        ]
+    score = score_fn(model, sde, torch.bfloat16)
+    # a short run first, so that the timed window holds no first call's cost
+    pc_sampler(config, sde, eps, tuple(batch["x"].shape), p_steps=WARMUP_STEPS)(
+        torch.Generator(device="cuda").manual_seed(0), score, batch["y"])
+    sampler = pc_sampler(config, sde, eps, tuple(batch["x"].shape), p_steps=ESTIMATOR_STEPS)
+    gen = torch.Generator(device="cuda").manual_seed(config.seed)
+    sample = run_sampler(
+        f"{approach} bfloat16 fused_block+fused_tail", lambda: sampler(gen, score, batch["y"])[0],
+        per_forward, ESTIMATOR_STEPS, shape=tuple(batch["x"].shape),
+    )
+    sample["sigma_max_y"] = sigma_y
+    del model, score
+
+    train = datasets_dir(recipe())
+    train.model.conv_dispatch = "conv3x3_kernel"
+    train.training.log_freq, train.training.eval_freq, train.training.snapshot_freq = 1, 10**9, 10**9
+    shapes = conv_call_shapes(train)
+    per_step = tuple(sum(n for (ph, *_), n in shapes.items() if ph == p) for p in ("forward", "dx"))
+    if per_step != CONV_PER_TRAIN_STEP:
+        raise RuntimeError(f"{approach}: kernel 4 calls per train step {per_step}, expected {CONV_PER_TRAIN_STEP}")
+    # CDE's 3-channel output conv (forward 96->3, dx 3->96) is not among the
+    # flagship's shapes, which the kernel phase checked: check what is new.
+    conv_rows = check_conv_shapes({k: n for k, n in shapes.items() if k not in checked_conv}, seed=2000,
+                                  site=f"{approach} trainer")
+    checked_conv.update(shapes)
+    expected = dict.fromkeys(WRAPPERS, 0)
+    expected["conv3x3"] = ESTIMATOR_TRAIN_STEPS * sum(per_step)
+    trained = run_trainer(f"{approach} float32 trainer, conv3x3_kernel", train, ESTIMATOR_TRAIN_STEPS, expected,
+                          evals=0, restore=False)
+    return sample, trained, agree, conv_rows
+
+
+def run_unconditional():
+    """The unconditional VE NCSN++ (`texture160_unconditional_ncsnpp`, nf=128,
+    128px, FIR) at B=8, float32: the FIR kernels against their plain versions
+    on a short sample; the recipe's sampler (reverse_diffusion + langevin)
+    with the FIR launches counted exactly; ancestral_sampling and ald;
+    `show_evolution`; `Trainer.fit` through `unpaired_PKLDataset`, whose
+    FIR calls all carry a gradient and take the plain versions."""
+    t = time.perf_counter()
+    config = datasets_dir(texture160_unconditional_ncsnpp_config())
+    model = init_model_random(config, seed=config.seed, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    sde, eps = build_sde(config)
+    shape = (UNCOND_BATCH, config.data.image_size, config.data.image_size, 3)
+    calls = forward_calls(config, UNCOND_BATCH)
+    per_forward = per_name(calls)
+    phase("setup", t, f"unconditional NCSN++: {n_params} parameters, VE sigma_max {sde.sigma_max:.4f},"
+                      f" kernel calls per forward {dict(calls)}")
+    if per_forward != PER_FORWARD_UNCOND_PATH:
+        raise RuntimeError(f"unconditional NCSN++: kernel calls per forward {per_forward},"
+                           f" expected {PER_FORWARD_UNCOND_PATH}")
+
+    def sample(steps, **kw):
+        fn = get_sampling_fn(config, sde, shape, eps, p_steps=steps, **kw)
+        return lambda seed, **call: fn(torch.Generator(device="cuda").manual_seed(seed), model, **call)
+
+    t = time.perf_counter()
+    check_fir_sites(calls, "unconditional NCSN++", UNCOND_BATCH)
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    got = sample(UNCOND_SHORT)(1)[0]
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+    expected = {name: PER_FORWARD_UNCOND_PATH.get(name, 0) * 2 * UNCOND_SHORT for name in WRAPPERS}
+    with plain_versions():
+        want = sample(UNCOND_SHORT)(1)[0]
+    fir_agree = dict(path="float32 unconditional NCSN++ FIR kernels vs plain", tol=FIR_AGREE_TOL,
+                     sample_rel_err=rel_err(got, want), launches=launches)
+    ok = fir_agree["sample_rel_err"] <= FIR_AGREE_TOL and launches == expected
+    phase("agreement", t, f"{fir_agree['path']}: {UNCOND_SHORT}-step sample rel err {fir_agree['sample_rel_err']:.3e}"
+                          f" (tol {FIR_AGREE_TOL:.0e}), launches {launches} (expected {expected})"
+                          f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("unconditional NCSN++: the FIR kernels disagree with their plain versions, or the"
+                           " compared sample did not launch them as counted")
+
+    main_fn = sample(UNCOND_STEPS)
+    result = run_sampler("float32 unconditional NCSN++ reverse_diffusion+langevin", lambda: main_fn(config.seed)[0],
+                         per_forward, UNCOND_STEPS, shape=shape)
+
+    t = time.perf_counter()
+    others = {}
+    for predictor, corrector in (("ancestral_sampling", "none"), ("reverse_diffusion", "ald")):
+        x = sample(UNCOND_SHORT, predictor=predictor, corrector=corrector)(2)[0]
+        others[f"{predictor}+{corrector}"] = bool(torch.isfinite(x).all()) and tuple(x.shape) == shape
+    # the frames against a run of the same sampler and seed without them:
+    # the last one is its final x; each step moves x
+    frames = sample(UNCOND_EVOLUTION, denoise=False)(3, show_evolution=True)[1]["evolution"]
+    x = sample(UNCOND_EVOLUTION, denoise=False)(3)[0]
+    evolution = tuple(frames.shape)
+    last_err = rel_err(frames[-1], x)
+    steps_move = all(not torch.equal(frames[k], frames[k + 1]) for k in range(len(frames) - 1))
+    ok = (all(others.values()) and evolution == (UNCOND_EVOLUTION, *shape) and last_err <= EVOLUTION_TOL
+          and steps_move)
+    phase("main", t, f"unconditional NCSN++ {UNCOND_SHORT}-step runs finite: {others}; show_evolution"
+                     f" {evolution}, last frame against the final x of a run without frames: rel err"
+                     f" {last_err:.3e} (tol {EVOLUTION_TOL:.0e}), consecutive frames differ: {steps_move}"
+                     f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("unconditional NCSN++: a predictor or corrector run, or the evolution, is wrong")
+    result.update(other_runs_finite=others, evolution_shape=list(evolution), evolution_last_rel_err=last_err,
+                  evolution_steps_move=steps_move)
+    del model
+
+    train = datasets_dir(texture160_unconditional_ncsnpp_config())
+    train.training.batch_size = UNCOND_BATCH
+    train.training.log_freq, train.training.eval_freq, train.training.snapshot_freq = 1, 10**9, 10**9
+    trained = run_trainer("float32 unconditional NCSN++ trainer", train, UNCOND_TRAIN_STEPS,
+                          dict.fromkeys(WRAPPERS, 0), evals=0, restore=False)
+    return result, trained, fir_agree
+
+
+def run_vp(name):
+    """DDPM++ (`cifar10_vp_config`, nf=128, 32px, no FIR) under a VP or sub-VP
+    SDE at B=64: the recipe's sampler (euler_maruyama, no corrector), short
+    ancestral_sampling and langevin runs, the Langevin step's alpha, one loss
+    and backward; no kernel runs, so every counter reads 0."""
+    t = time.perf_counter()
+    config = cifar10_vp_config(name)
+    model = init_model_random(config, seed=config.seed, device="cuda")
+    sde, eps = build_sde(config)
+    shape = (VP_BATCH, config.data.image_size, config.data.image_size, 3)
+    per_forward = per_name(forward_calls(config, VP_BATCH))
+    phase("setup", t, f"{name} DDPM++: {sum(p.numel() for p in model.parameters())} parameters, eps {eps},"
+                      f" kernel calls per forward {per_forward}")
+    if per_forward:
+        raise RuntimeError(f"{name}: kernel calls per forward {per_forward}, expected none")
+
+    def sample(steps, **kw):
+        fn = get_sampling_fn(config, sde, shape, eps, p_steps=steps, **kw)
+        return lambda seed: fn(torch.Generator(device="cuda").manual_seed(seed), model)[0]
+
+    sample(WARMUP_STEPS)(0)  # so that the timed window holds no first call's cost
+    main_fn = sample(VP_STEPS)
+    result = run_sampler(f"float32 {name} DDPM++ euler_maruyama+none", lambda: main_fn(config.seed), {}, VP_STEPS,
+                         shape=shape, evals_per_step=1)
+
+    t = time.perf_counter()
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    others = {}
+    runs = [("euler_maruyama", "langevin")] + ([("ancestral_sampling", "none")] if name == "vpsde" else [])
+    for predictor, corrector in runs:
+        x = sample(VP_SHORT, predictor=predictor, corrector=corrector)(2)
+        others[f"{predictor}+{corrector}"] = bool(torch.isfinite(x).all()) and tuple(x.shape) == shape
+    if name != "vpsde":  # sub-VP has no ancestral step, in JAX neither
+        try:
+            sample(VP_SHORT, predictor="ancestral_sampling", corrector="none")(2)
+            others["ancestral_sampling refused"] = False
+        except NotImplementedError:
+            others["ancestral_sampling refused"] = True
+
+    # the Langevin step size carries alphas[timestep] under VP (1 under sub-VP)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(shape, generator=g, device="cuda")
+    z = torch.randn(shape, generator=g, device="cuda")
+    vec_t = torch.full((VP_BATCH,), 0.5, device="cuda")
+    score = get_score_fn(sde, model, conditional=False, train=False, continuous=True)
+    snr = config.sampling.snr
+    _, x_mean = get_corrector("langevin")(lambda s: z, x, vec_t, sde=sde, score_fn=score, snr=snr, n_steps=1)
+    grad = score(x, vec_t)
+    alpha = sde.alphas(x.device)[int(0.5 * (sde.N - 1))] if isinstance(sde, VPSDE) else 1.0
+    step = (snr * z.flatten(1).norm(dim=-1).mean() / grad.flatten(1).norm(dim=-1).mean()) ** 2 * 2 * alpha
+    alpha_err = rel_err(x_mean - x, step * grad)
+
+    model.train()
+    loss = build_loss_fn(config, model, sde, train=True)(
+        sde, torch.rand(shape, generator=g, device="cuda"), generator=g
+    )
+    loss.backward()
+    grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in model.parameters() if p.grad is not None)
+    model.eval()
+    torch.cuda.synchronize()
+    launches = {name_: fn.launches for name_, fn in WRAPPERS.items()}
+    ok = (all(others.values()) and alpha_err <= 1e-5 and math.isfinite(loss.item()) and grads_finite
+          and not any(launches.values()))
+    phase("main", t, f"{name} {VP_SHORT}-step runs: {others}; Langevin step with alpha"
+                     f" {float(alpha):.6f}: rel err {alpha_err:.3e} (tol 1e-5); loss {loss.item():.5f}, gradients"
+                     f" finite: {grads_finite}; launches {launches} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{name}: a run, the Langevin alpha, the loss, its gradients or the launches are wrong")
+    result.update(other_runs=others, langevin_alpha=float(alpha), langevin_alpha_rel_err=alpha_err,
+                  loss=loss.item(), grads_finite=grads_finite)
+    return result
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1538,11 +1888,11 @@ def main() -> int:
     if per_step != CONV_PER_TRAIN_STEP:
         raise RuntimeError(f"kernel 4 calls per train step {per_step}, expected {CONV_PER_TRAIN_STEP}")
     conv_rows, hmajor_rows = check_conv(shapes)
-    harness_tails = tail_call_shapes(harness_config(""), HARNESS_BATCH)
+    harness_tails = sites(forward_calls(harness_config(""), HARNESS_BATCH), "gn_silu_conv3x3")
     harness_tail_rows = check_harness_tails(harness_tails)
     t64_blocks = harness_config("")
     t64_blocks.model.fused_block = True
-    t64_sites = block_call_shapes(t64_blocks, HARNESS_BATCH)
+    t64_sites = sites(forward_calls(t64_blocks, HARNESS_BATCH), "resblock_fused", "resblock_fused_split")
     if t64_sites != {(name, *shape): calls for name, *shape, calls in TEXTURE64_BLOCK_SHAPES}:
         raise RuntimeError(f"texture64 block sites {dict(t64_sites)}, expected {TEXTURE64_BLOCK_SHAPES}")
     check_texture64_blocks()
@@ -1645,6 +1995,17 @@ def main() -> int:
     agree_texture64 = texture64_agreement(harness_config(""))
     main_harness = run_harness(sum(harness_tails.values()))
 
+    # ---- the paper's other estimators, the unconditional and VP samplers ----
+    estimator_paths, agree_estimators, estimator_conv_rows, checked_conv = [], [], [], set(shapes)
+    for approach, recipe in ESTIMATORS:
+        sample, trained, agree_one, conv_rows_one = run_estimator(approach, recipe, checked_conv)
+        estimator_paths += [sample, trained]
+        agree_estimators += agree_one
+        estimator_conv_rows += conv_rows_one
+    main_uncond, train_uncond, agree_uncond = run_unconditional()
+    main_vp = [run_vp(name) for name in ("vpsde", "subvpsde")]
+    new_paths = estimator_paths + [main_uncond, train_uncond] + main_vp
+
     bf16 = torch.bfloat16
     tail_line = per_forward_row(
         "gn_silu_conv3x3", "conditional_score_diffusion_tpu_torch/csrc/gn_silu_conv3x3.cu",
@@ -1711,6 +2072,7 @@ def main() -> int:
         unit=f"one float32 train step of the flagship, B={TRAIN_BATCH}: {fwd} forward and {dx} dx calls"
              " (the sum over the calls); library_ms is F.conv2d (cuDNN, TF32 off) on the same tensors",
         forward=f32["forward"], dx=f32["dx"], bfloat16=conv_sums(conv_rows, torch.bfloat16), per_shape=conv_rows,
+        per_shape_other_trainers=estimator_conv_rows,
     )
     hmajor_f32 = [r for r in hmajor_rows if r["dtype"] == "float32"]
     hmajor_line = dict(
@@ -1741,8 +2103,11 @@ def main() -> int:
         per_shape=act_rows,
     )
     kernels += [conv_line, hmajor_line, act_line]
-    paths = [main_new, main_tail, main_ncsnpp, main_train, main_train_off, main_harness]
-    agree += [agree_train, agree_texture64]
+    for k in kernels:  # each kernel's launches on the estimator, unconditional and VP paths
+        name = "conv3x3" if k["name"] == "conv3x3_hmajor" else k["name"]
+        k["launches_other_paths"] = {p["path"]: p["launches"][name] for p in new_paths if p["launches"][name]}
+    paths = [main_new, main_tail, main_ncsnpp, main_train, main_train_off, main_harness] + new_paths
+    agree += [agree_train, agree_texture64] + agree_estimators + [agree_uncond]
     print(json.dumps({"kernels": kernels, "paths": paths, "agreement": agree}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

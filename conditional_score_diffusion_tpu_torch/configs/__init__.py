@@ -1,29 +1,51 @@
 """Recipes as plain Python (`Config` namespaces), without ml_collections."""
 
 from .base import Config, base_config, image_model_defaults
-from .celeba_sr import celeba_sr_128_config, celeba_sr_160_config, celeba_sr_interpolation_config
+from .celeba_sr import (
+    celeba_sr_128_config,
+    celeba_sr_160_config,
+    celeba_sr_deep_config,
+    celeba_sr_interpolation_config,
+)
+from .extra import cifar10_vp_config, texture160_unconditional_ncsnpp_config, unconditional_pkl_config
 from .srflow import df2k_config
 from .texture160_kxsr_ncsnpp import get_config as texture160_kxsr_ncsnpp_config
 from .texture160_kxsr_ncsnpp_block import get_config as texture160_kxsr_ncsnpp_block_config
+from .texture160_sr import (
+    texture160_sr_cde_config,
+    texture160_sr_cdiffe_config,
+    texture160_sr_vscmde_config,
+    texture160_sr_vscmde_slow_config,
+)
 from .texture160_sr_cmde import get_config as texture160_sr_cmde_config
 from .texture160_sr_cmde_bf16_block import get_config as texture160_sr_cmde_bf16_block_config
 from .texture160_sr_cmde_conv3x3 import get_config as texture160_sr_cmde_conv3x3_config
 from .texture64_sr_cmde import get_config as texture64_sr_cmde_config
 from .texture64_sr_cmde_test import get_config as texture64_sr_cmde_test_config
+from .texture64_sr_dv import get_config as texture64_sr_dv_config
 
 __all__ = [
     "Config",
     "base_config",
     "celeba_sr_128_config",
     "celeba_sr_160_config",
+    "celeba_sr_deep_config",
     "celeba_sr_interpolation_config",
+    "cifar10_vp_config",
     "df2k_config",
     "image_model_defaults",
     "texture160_kxsr_ncsnpp_block_config",
     "texture160_kxsr_ncsnpp_config",
+    "texture160_sr_cde_config",
+    "texture160_sr_cdiffe_config",
     "texture160_sr_cmde_bf16_block_config",
     "texture160_sr_cmde_config",
     "texture160_sr_cmde_conv3x3_config",
+    "texture160_sr_vscmde_config",
+    "texture160_sr_vscmde_slow_config",
+    "texture160_unconditional_ncsnpp_config",
     "texture64_sr_cmde_config",
     "texture64_sr_cmde_test_config",
+    "texture64_sr_dv_config",
+    "unconditional_pkl_config",
 ]

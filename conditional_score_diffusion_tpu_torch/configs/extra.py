@@ -1,0 +1,93 @@
+"""Two recipes of the JAX package's `configs/extra.py`, copied: the
+unconditional VE NCSN++ on a `.pklv4` image list (`unconditional_pkl_config`)
+and CIFAR-10 under a VP or sub-VP SDE (`cifar10_vp_config`, DDPM++
+continuous on the ``ncsnpp`` graph); and the texture160 variant of the
+first (`texture160_unconditional_ncsnpp_config`)."""
+
+from __future__ import annotations
+
+import math
+
+from .base import Config, base_config, image_model_defaults
+
+
+def unconditional_pkl_config(image_size: int = 64) -> Config:
+    """Unconditional NCSN++ on celebA-HQ pklv4 (JAX
+    `configs/extra.py:unconditional_pkl_config`): nf=128, ch_mult
+    (1, 1, 2, 2), attention at 16, FIR, BigGAN resblocks, VE."""
+    config = base_config()
+    config.experiment_name = f"ve_celebAHQ_{image_size}"
+    config.training.lightning_module = "base"
+    config.training.sde = "vesde"
+    config.training.likelihood_weighting = False
+    config.training.reduce_mean = False
+
+    data = config.data
+    data.dataset = "celebA-HQ-160"
+    data.datamodule = "unpaired_PKLDataset"
+    data.image_size = image_size
+    data.effective_image_size = image_size
+    data.shape = [3, image_size, image_size]
+    data.num_channels = 3
+    data.use_flip = True
+
+    model = config.model
+    model.sigma_max = float(math.sqrt(math.prod(data.shape)))
+    model.sigma_min = 5e-3
+    model.name = "ncsnpp"
+    image_model_defaults(model)
+    model.nf = 128
+    model.ch_mult = (1, 1, 2, 2)
+    model.attn_resolutions = (16,)
+    model.num_scales = 1000
+    return config
+
+
+def texture160_unconditional_ncsnpp_config() -> Config:
+    """`unconditional_pkl_config(128)` on the in-repo texture160 patches
+    (resized bicubic from 160 to 128 by `unpaired_PKLDataset`); nothing
+    else changed."""
+    config = unconditional_pkl_config(128)
+    config.data.dataset = "texture160"
+    config.data.base_dir = "datasets"
+    return config
+
+
+def cifar10_vp_config(sde: str = "vpsde", model_name: str = "ncsnpp") -> Config:
+    """CIFAR-10 with a VP or sub-VP SDE (JAX
+    `configs/extra.py:cifar10_vp_config`): nf=128, 4 resblocks a level,
+    32px, no FIR, Euler-Maruyama without a corrector."""
+    config = base_config()
+    config.training.sde = sde
+    config.training.continuous = True
+    config.training.likelihood_weighting = sde == "subvpsde"
+    config.training.reduce_mean = True
+    config.sampling.method = "pc"
+    config.sampling.predictor = "euler_maruyama"
+    config.sampling.corrector = "none"
+    config.sampling.snr = 0.16
+
+    data = config.data
+    data.dataset = "CIFAR10"
+    data.datamodule = "image"
+    data.image_size = 32
+    data.effective_image_size = 32
+    data.centered = True
+    data.shape = [3, 32, 32]
+    data.num_channels = 3
+
+    model = config.model
+    model.name = model_name
+    image_model_defaults(model)
+    model.nf = 128
+    model.ch_mult = (1, 2, 2, 2)
+    model.num_res_blocks = 4
+    model.attn_resolutions = (16,)
+    model.embedding_type = "positional"
+    model.fir = False
+    model.resblock_type = "biggan"
+    model.num_scales = 1000
+    model.beta_min = 0.1
+    model.beta_max = 20.0
+    config.optim.warmup = 5000
+    return config

@@ -9,7 +9,9 @@ ulp):
 * `General_PKLDataset`: GT images with on-the-fly super-resolution
   degradation (y is the bicubic LR upsampled back by nearest neighbour);
 * `LRHR_PKLDataset`: stored LQ/GT pairs, y the LQ image as it is (or
-  upsampled by nearest neighbour where the recipe sets ``upscale_lr``).
+  upsampled by nearest neighbour where the recipe sets ``upscale_lr``);
+* `unpaired_PKLDataset`: the GT images alone, a batch a bare NHWC array,
+  resized bicubic to ``data.image_size`` (the unconditional recipes).
 
 The train split is shuffled every epoch and, with ``data.use_flip``, each
 image (and its LQ partner) flipped horizontally by a mask drawn from the
@@ -110,9 +112,29 @@ def iter_test_batches(config, batch_size=None) -> Iterator[Dict[str, np.ndarray]
     return PKLDataModule(config).test_iterator(batch_size)
 
 
+DATAMODULES = ("General_PKLDataset", "LRHR_PKLDataset", "unpaired_PKLDataset")
+
+
+def make_unpaired_batch(
+    images: List[np.ndarray], image_size: int, use_flip: bool, rng: np.random.Generator
+) -> np.ndarray:
+    """One float32 [0, 1] NHWC batch of GT images, each flipped horizontally
+    where a draw of ``rng`` (one per image, in order) is below 0.5, resized
+    bicubic to ``image_size``."""
+    xs = []
+    for im in images:
+        hr = im.astype(np.float32) / 255.0
+        if use_flip and rng.random() < 0.5:
+            hr = np.ascontiguousarray(hr[:, ::-1, :])
+        xs.append(hr)
+    x = np.stack(xs)
+    return bicubic_resize_np(x, image_size) if x.shape[1] != image_size else x
+
+
 class PKLDataModule:
-    """The split iterators of `General_PKLDataset` and `LRHR_PKLDataset`
-    (JAX `GeneralPKLDataModule`, `LRHRPKLDataModule`).
+    """The split iterators of `General_PKLDataset`, `LRHR_PKLDataset` and
+    `unpaired_PKLDataset` (JAX `GeneralPKLDataModule`, `LRHRPKLDataModule`,
+    `UnpairedPKLDataModule`).
 
     A split's files are read at its first use, so a machine that holds only
     some splits can iterate those."""
@@ -120,9 +142,10 @@ class PKLDataModule:
     def __init__(self, config):
         self.config = config
         self.seed = config.seed
-        if config.data.datamodule not in ("General_PKLDataset", "LRHR_PKLDataset"):
+        if config.data.datamodule not in DATAMODULES:
             raise NotImplementedError(f"datamodule {config.data.datamodule!r} is not ported")
         self.lrhr = config.data.datamodule == "LRHR_PKLDataset"
+        self.unpaired = config.data.datamodule == "unpaired_PKLDataset"
         self._images: Dict[str, Dict[str, List[np.ndarray]]] = {}
 
     def images(self, phase: str) -> Dict[str, List[np.ndarray]]:
@@ -156,6 +179,9 @@ class PKLDataModule:
         def flips_of(idx, rng):
             return (rng.random(len(idx)) < 0.5).astype(np.uint8) if use_flip else None
 
+        if self.unpaired:
+            image_size = c.data.image_size
+            return lambda idx, rng: make_unpaired_batch([hr[i] for i in idx], image_size, use_flip, rng)
         if self.lrhr:
             if phase == "train" and (c.data.get("use_crop", False) or c.data.get("use_rot", False)):
                 raise NotImplementedError("random crops and rotations of LRHR_PKLDataset are not ported")

@@ -10,15 +10,16 @@ returns the scalar loss of one batch:
   sample before the reduction; only likelihood weighting is supported, as
   in JAX;
 * the SR3 branch (a single SDE and a conditional model): x is diffused, y
-  enters the network clean.
-
-The unconditional branch is not ported: the port has no unconditional
-score yet (ROADMAP.md section 1, item 2).
+  enters the network clean;
+* the unconditional branch (``batch`` a tensor, the data): it is diffused
+  and the unconditional score of it held to the noise, with or without
+  likelihood weighting.
 
 Randomness: ``t`` is uniform in [eps, T) and the noise standard normal, both
 drawn from ``generator`` (a `torch.Generator` on the batch's device) in the
-JAX order (t, then one draw per sorted domain; SR3: t, then z).  ``t`` and
-``noise`` (a dict by domain; SR3: ``{'x': z}``) may be given instead, as the
+JAX order (t, then one draw per sorted domain; SR3 and unconditional: t,
+then z).  ``t`` and ``noise`` (a dict by domain; SR3 and unconditional:
+``{'x': z}``) may be given instead, as the
 parity tests do with the JAX key chain's draws; jax.random and
 torch.Generator cannot agree.  Dropout, in train mode, draws from torch's
 default generator of the device (`training/steps.py` seeds it per step).
@@ -28,7 +29,7 @@ parameters (the EMA weights of an eval loss).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Union
 
 import torch
 
@@ -61,24 +62,34 @@ def get_general_sde_loss_fn(
     eps: float = 1e-5,
 ) -> Callable:
     """The continuous DSM loss of ``model`` (see the module docstring)."""
-    if not conditional:
-        raise NotImplementedError(
-            "the unconditional continuous loss needs the unconditional score (ROADMAP.md section 1, item 2)"
-        )
 
     def score_fn(sde, params):
-        return get_score_fn(sde, model, conditional=True, train=train, continuous=True, params=params)
+        return get_score_fn(sde, model, conditional=conditional, train=train, continuous=True, params=params)
+
+    def single_sde_loss(sde, x, y, t, z, params):
+        """SR3 (x diffused, ``y`` clean) or, with ``y`` None, unconditional."""
+        mean, std = sde.marginal_prob(x, t)
+        perturbed = mean + batch_mul(std, z)
+        score = score_fn(sde, params)(perturbed if y is None else {"x": perturbed, "y": y}, t)
+        if likelihood_weighting:
+            g2 = sde.sde(x, t)[1] ** 2
+            per_sample = _reduce(_flat(torch.square(score + batch_mul(1.0 / std, z))), reduce_mean) * g2
+        else:
+            per_sample = _reduce(_flat(torch.square(batch_mul(std, score) + z)), reduce_mean)
+        return per_sample.mean()
 
     def loss_fn(
         sde,
-        batch: Mapping[str, torch.Tensor],
+        batch: Union[torch.Tensor, Mapping[str, torch.Tensor]],
         generator: Optional[torch.Generator] = None,
         t: Optional[torch.Tensor] = None,
         noise: Optional[Mapping[str, torch.Tensor]] = None,
         params: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> torch.Tensor:
         noise = dict(noise or {})
-        if is_multispeed(sde):
+        if not conditional:
+            x, y = batch, None
+        elif is_multispeed(sde):
             if not likelihood_weighting:
                 raise ValueError("multi-speed diffusion supports only likelihood weighting")
             keys = sorted(k for k in batch if k in sde)
@@ -100,19 +111,11 @@ def get_general_sde_loss_fn(
                 err = torch.square(score[k] + batch_mul(1.0 / stds[k], noise[k]))
                 parts.append(_flat(batch_mul(g2, err)))
             return _reduce(torch.cat(parts, dim=-1), reduce_mean).mean()
-
-        # SR3/CDE: x is perturbed, y enters the network clean.
-        x, y = batch["x"], batch["y"]
+        else:  # SR3/CDE: x is perturbed, y enters the network clean.
+            x, y = batch["x"], batch["y"]
         if t is None:
             t = _uniform_t(x.shape[0], sde.T, eps, generator, x.device)
         z = noise["x"] if "x" in noise else torch.randn(x.shape, generator=generator, device=x.device)
-        mean, std = sde.marginal_prob(x, t)
-        score = score_fn(sde, params)({"x": mean + batch_mul(std, z), "y": y}, t)
-        if likelihood_weighting:
-            g2 = sde.sde(x, t)[1] ** 2
-            per_sample = _reduce(_flat(torch.square(score + batch_mul(1.0 / std, z))), reduce_mean) * g2
-        else:
-            per_sample = _reduce(_flat(torch.square(batch_mul(std, score) + z)), reduce_mean)
-        return per_sample.mean()
+        return single_sde_loss(sde, x, y, t, z, params)
 
     return loss_fn

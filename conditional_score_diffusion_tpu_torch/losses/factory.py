@@ -1,5 +1,6 @@
 """Select the loss of a recipe (JAX `losses/factory.py`): the continuous
-branch.  The discrete SMLD/DDPM/inverse-problem losses are not ported
+branch, conditional where the recipe names a ``conditioning_approach``,
+else unconditional.  The discrete SMLD/DDPM/inverse-problem losses are not ported
 (ROADMAP.md section 1, item 9)."""
 
 from __future__ import annotations

@@ -1,8 +1,16 @@
 """Score-function wrappers: raw network output -> time-dependent score
-(JAX `models/wrappers.py`; the continuous VE and multi-speed branches).
+(JAX `models/wrappers.py`).
 
-The model is fed ``labels = t * (N - 1)`` and its output is divided by the
-marginal std of each domain.
+* VE family, continuous: a conditional model is fed ``labels = t * (N - 1)``;
+  an unconditional one the noise level sigma(t) itself, or log sigma(t)
+  for a Fourier time embedding; the output is divided by the marginal std.
+* VP family: ``labels = t * (N - 1)``; divided by the marginal std
+  (continuous, and always under sub-VP) or by the DDPM
+  ``sqrt(1 - alphas_cumprod)`` at the truncated label.
+* Discrete VE: labels rounded to integer steps, divided by the sigma ladder
+  at them (an unconditional model is fed that sigma).
+* Multi-speed dict SDEs: the model consumes and returns dicts; each
+  domain's output is divided by that domain's std.
 """
 
 from __future__ import annotations
@@ -12,7 +20,7 @@ from typing import Callable, Mapping, Optional
 
 import torch
 
-from ..sde import VESDE, batch_mul, is_multispeed
+from ..sde import VESDE, VPSDE, batch_mul, is_multispeed, subVPSDE
 
 
 def _map(fn, tree):
@@ -78,6 +86,20 @@ def _divide_by_std_continuous(h, t, sde):
     return batch_mul(1.0 / sde.marginal_prob(None, t)[1], h)
 
 
+def _divide_by_std_discrete(h, labels, sde):
+    if is_multispeed(sde) and isinstance(h, dict):
+        return {
+            domain: batch_mul(1.0 / sde[domain].discrete_sigmas(labels.device)[labels], h[domain])
+            for domain in h
+        }
+    return batch_mul(1.0 / sde.discrete_sigmas(labels.device)[labels], h)
+
+
+def _rounded(t, N):
+    """Integer labels ``round(t * (N - 1))`` (JAX ``jnp.round``: half to even)."""
+    return torch.round(t * (N - 1)).to(torch.int64)
+
+
 def get_score_fn(
     sde,
     model,
@@ -87,22 +109,59 @@ def get_score_fn(
     compute_dtype: Optional[torch.dtype] = None,
     params: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> Callable:
-    """``score_fn(inputs, t)`` of a conditional model under a continuous-time
-    multi-speed VE (or single VE) SDE; ``inputs`` is ``{'x': ..., 'y': ...}``
-    and ``t`` a per-batch time vector in [0, T].  ``compute_dtype`` and
-    ``params`` as in :func:`get_model_fn`."""
-    if not (conditional and continuous):
-        raise NotImplementedError("only the conditional continuous-time score is ported")
-    if not (is_multispeed(sde) or isinstance(sde, VESDE)):
-        raise NotImplementedError(f"SDE {type(sde).__name__} is not ported")
+    """``score_fn(inputs, t)``: ``inputs`` is ``{'x': ..., 'y': ...}`` for a
+    conditional (paired) model, else a tensor; ``t`` a per-batch time
+    vector in [0, T].  ``compute_dtype`` and ``params`` as in
+    :func:`get_model_fn`."""
     model_fn = get_model_fn(model, train=train, compute_dtype=compute_dtype, params=params)
-    N = sde["x"].N if is_multispeed(sde) else sde.N
+    vp = isinstance(sde, (VPSDE, subVPSDE))
 
-    def score_fn(inputs, t):
-        h = model_fn(inputs, t * (N - 1))
-        return _divide_by_std_continuous(h, t, sde)
+    if conditional:
+        if not (is_multispeed(sde) or vp or isinstance(sde, VESDE)):
+            raise NotImplementedError(f"SDE {type(sde).__name__} not supported for conditional score.")
+        N = sde["x"].N if is_multispeed(sde) else sde.N
 
-    return score_fn
+        def score_fn(inputs, t):
+            if vp:
+                labels = t * (N - 1)
+                h = model_fn(inputs, labels)
+                if continuous:
+                    return _divide_by_std_continuous(h, t, sde)
+                return batch_mul(1.0 / sde.sqrt_1m_alphas_cumprod(t.device)[labels.to(torch.int64)], h)
+            if continuous:
+                return _divide_by_std_continuous(model_fn(inputs, t * (N - 1)), t, sde)
+            labels = _rounded(t, N)
+            return _divide_by_std_discrete(model_fn(inputs, labels), labels, sde)
+
+        return score_fn
+
+    if vp:
+
+        def score_fn(x, t):
+            labels = t * (sde.N - 1)
+            h = model_fn(x, labels)
+            if continuous or isinstance(sde, subVPSDE):
+                std = sde.marginal_prob(None, t)[1]
+            else:
+                std = sde.sqrt_1m_alphas_cumprod(t.device)[labels.to(torch.int64)]
+            return batch_mul(1.0 / std, h)
+
+        return score_fn
+
+    if isinstance(sde, VESDE):
+        fourier = getattr(model, "embedding_type", "positional") == "fourier"
+
+        def score_fn(x, t):
+            if continuous:
+                std = sde.marginal_prob(None, t)[1]
+                h = model_fn(x, torch.log(std) if fourier else std)
+                return batch_mul(1.0 / std, h)
+            sigma_labels = sde.discrete_sigmas(t.device)[_rounded(t, sde.N)]
+            return batch_mul(1.0 / sigma_labels, model_fn(x, sigma_labels))
+
+        return score_fn
+
+    raise NotImplementedError(f"SDE {type(sde).__name__} not supported.")
 
 
 def get_conditional_score_fn(score_fn: Callable, target_domain: str = "x") -> Callable:

@@ -62,6 +62,7 @@ from .models.wrappers import get_conditional_score_fn, get_score_fn
 from .ops import conv3x3, fir, fused_block, fused_tail
 from .sampling import get_pc_conditional_sampler
 from .sde import build_sde
+from .sde.factory import is_conditional_config
 from .training.schedules import is_decreasing_variance, sigma_y_at_step
 
 PATHS = {
@@ -106,9 +107,12 @@ def sampler_sde(config):
 
 
 def path_inputs(config, batch: int, device):
-    """Empty ``{'x', 'y'}`` inputs of the recipe's shapes: y at x's size, or
-    at 1/scale of it for a model that takes the LR image as it is."""
+    """Empty inputs of the recipe's shapes: ``{'x', 'y'}`` with y at x's size,
+    or at 1/scale of it for a model that takes the LR image as it is; one
+    tensor for an unconditional recipe."""
     s = config.data.image_size
+    if not is_conditional_config(config):
+        return torch.empty(batch, s, s, 3, device=device)
     ys = s // config.data.scale if config.model.name == "ncsnpp_KxSR" else s
     return {"x": torch.empty(batch, s, s, 3, device=device), "y": torch.empty(batch, ys, ys, 3, device=device)}
 

@@ -1,16 +1,26 @@
-"""Conditional predictor-corrector sampler (JAX `sampling/pc.py`:
-`get_pc_conditional_sampler`, `get_conditional_sampling_fn`).
+"""Predictor-corrector samplers (JAX `sampling/pc.py`): the unconditional
+`get_pc_sampler` / `get_sampling_fn` and the conditional
+`get_pc_conditional_sampler` / `get_conditional_sampling_fn`.
 
-The JAX sampler is one `lax.scan`; here it is a Python loop over the
-timestep grid that stays on the device (no host sync per step).
+The JAX samplers are one `lax.scan` each; here each is a Python loop over
+the timestep grid that stays on the device (no host sync per step).
 
 All random draws go through one noise source, ``noise(shape)`` -> standard
 normal values.  A `torch.Generator` is wrapped by :func:`gaussian_noise`;
 tests pass a callable that replays the JAX key chain's draws.  The order of
 draws is the JAX sampler's order of use: the prior, then for each step
-(fresh-perturbation mode) the corrector's y, the corrector, the predictor's
-y and the predictor; (``use_path`` mode) y at T + tau once, then for each
-step the backward-kernel draw, the predictor and the corrector.
+(unconditional) the corrector's and then the predictor's draws;
+(conditional, fresh-perturbation mode) the corrector's y, the corrector,
+the predictor's y and the predictor; (``use_path`` mode) y at T + tau once,
+then for each step the backward-kernel draw, the predictor and the
+corrector.  A corrector draws once for each of its ``n_steps``, a
+predictor once (``none``: never).
+
+``show_evolution=True`` keeps every step's state, as the JAX scan stacks it:
+``info["evolution"]`` is x after each step, shape ``(p_steps, *shape)``,
+for the unconditional sampler, and ``{'x', 'y'}`` (x and the y that the
+step's predictor saw) for the conditional one.  It holds ``p_steps`` copies
+of the batch: keep it off for a long run.
 """
 
 from __future__ import annotations
@@ -57,6 +67,55 @@ def _resolve(config, predictor, corrector, p_steps, c_steps, snr, denoise):
     return predictor.lower(), corrector.lower(), p_steps, c_steps, snr, denoise
 
 
+def _stacked(frames):
+    if isinstance(frames[0], dict):
+        return {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
+    return torch.stack(frames)
+
+
+def get_pc_sampler(
+    sde,
+    shape: Sequence[int],
+    predictor: str,
+    corrector: str,
+    snr: float,
+    p_steps: int,
+    c_steps: int = 1,
+    probability_flow: bool = False,
+    denoise: bool = True,
+    eps: float = 1e-3,
+) -> Callable:
+    """Unconditional PC sampler.
+
+    Returns ``sampler(noise, score_fn, show_evolution=False) -> (samples,
+    info)``; ``noise`` is a `torch.Generator` or a noise source, and
+    ``score_fn(x, t)`` a score function (`models.wrappers.get_score_fn`).
+    The prior is drawn on the noise source's device.
+    """
+    predictor_fn = get_predictor(predictor)
+    corrector_fn = get_corrector(corrector)
+
+    def sampler(noise, score_fn, show_evolution: bool = False):
+        noise = _as_noise(noise)
+        x = sde.prior_sampling(noise, tuple(shape)).float()
+        x_mean = x
+        timesteps = torch.linspace(sde.T, eps, p_steps, device=x.device)
+        frames = []
+        for i in range(p_steps):
+            vec_t = timesteps[i].expand(shape[0])
+            x, x_mean = corrector_fn(noise, x, vec_t, sde=sde, score_fn=score_fn, snr=snr, n_steps=c_steps)
+            x, x_mean = predictor_fn(noise, x, vec_t, sde=sde, score_fn=score_fn, probability_flow=probability_flow)
+            if show_evolution:
+                frames.append(x)
+        samples = x_mean if denoise else x
+        info = {"times": timesteps, "steps": p_steps * (c_steps + 1)}
+        if show_evolution:
+            info["evolution"] = _stacked(frames)
+        return samples, info
+
+    return sampler
+
+
 def get_pc_conditional_sampler(
     sde,
     shape: Sequence[int],
@@ -72,7 +131,8 @@ def get_pc_conditional_sampler(
 ) -> Callable:
     """Conditional PC sampler (CDE/CDiffE/CMDE inference).
 
-    Returns ``sampler(noise, score_fn, y) -> (samples, info)``; ``noise`` is
+    Returns ``sampler(noise, score_fn, y, show_evolution=False) ->
+    (samples, info)``; ``noise`` is
     a `torch.Generator` or a noise source, ``score_fn(x, y, t)`` the
     conditional score of the target domain and ``y`` the clean condition
     (NHWC, on the device to sample on).
@@ -91,7 +151,7 @@ def get_pc_conditional_sampler(
     c_sde = sde["x"] if multispeed else sde
     y_sde = sde["y"] if multispeed else None
 
-    def sampler(noise, score_fn, y):
+    def sampler(noise, score_fn, y, show_evolution: bool = False):
         noise = _as_noise(noise)
         B = y.shape[0]
 
@@ -104,29 +164,31 @@ def get_pc_conditional_sampler(
         timesteps = torch.linspace(c_sde.T, eps, p_steps, device=y.device)
         corrector_kwargs = dict(sde=c_sde, score_fn=score_fn, snr=snr, n_steps=c_steps)
         predictor_kwargs = dict(sde=c_sde, score_fn=score_fn, probability_flow=probability_flow)
+        frames = []
 
         if multispeed and use_path:
             tau = timesteps[0] - timesteps[1]
             y_t = perturb_y((timesteps[0] + tau).expand(B))  # y at T + tau
-            for i in range(p_steps):
-                vec_t = timesteps[i].expand(B)
+        for i in range(p_steps):
+            vec_t = timesteps[i].expand(B)
+            if multispeed and use_path:
                 y_mean, y_std = y_sde.compute_backward_kernel(y, y_t, vec_t, tau.expand(B))
                 y_t = y_mean + batch_mul(y_std, noise(y.shape))
                 x, x_mean = predictor_fn(noise, x, vec_t, y=y_t, **predictor_kwargs)
                 x, x_mean = corrector_fn(noise, x, vec_t, y=y_t, **corrector_kwargs)
-        elif multispeed:
-            for i in range(p_steps):
-                vec_t = timesteps[i].expand(B)
-                x, x_mean = corrector_fn(noise, x, vec_t, y=perturb_y(vec_t), **corrector_kwargs)
-                x, x_mean = predictor_fn(noise, x, vec_t, y=perturb_y(vec_t), **predictor_kwargs)
-        else:
-            for i in range(p_steps):
-                vec_t = timesteps[i].expand(B)
-                x, x_mean = corrector_fn(noise, x, vec_t, y=y, **corrector_kwargs)
-                x, x_mean = predictor_fn(noise, x, vec_t, y=y, **predictor_kwargs)
+                y_p = y_t
+            else:
+                y_c = perturb_y(vec_t) if multispeed else y
+                x, x_mean = corrector_fn(noise, x, vec_t, y=y_c, **corrector_kwargs)
+                y_p = perturb_y(vec_t) if multispeed else y
+                x, x_mean = predictor_fn(noise, x, vec_t, y=y_p, **predictor_kwargs)
+            if show_evolution:
+                frames.append({"x": x, "y": y_p})
 
         samples = x_mean if denoise else x
         info = {"times": timesteps, "steps": p_steps * (c_steps + 1)}
+        if show_evolution:
+            info["evolution"] = _stacked(frames)
         return samples, info
 
     return sampler
@@ -147,7 +209,7 @@ def get_conditional_sampling_fn(
 ):
     """Conditional sampling function of a recipe.
 
-    Returns ``fn(noise, model, y) -> (samples, info)``;
+    Returns ``fn(noise, model, y, show_evolution=False) -> (samples, info)``;
     ``model`` is the paired score network (e.g. ``ddpm_paired``).
     """
     predictor, corrector, p_steps, c_steps, snr, denoise = _resolve(
@@ -170,11 +232,57 @@ def get_conditional_sampling_fn(
         eps=eps,
     )
 
-    def fn(noise, model, y):
+    def fn(noise, model, y, show_evolution: bool = False):
         raw_score_fn = get_score_fn(
             sde, model, conditional=True, train=False, continuous=config.training.continuous
         )
         score_fn = get_conditional_score_fn(raw_score_fn, target_domain="x")
-        return pc(noise, score_fn, y)
+        return pc(noise, score_fn, y, show_evolution=show_evolution)
+
+    return fn
+
+
+def get_sampling_fn(
+    config,
+    sde,
+    shape,
+    eps,
+    predictor="default",
+    corrector="default",
+    p_steps="default",
+    c_steps="default",
+    snr="default",
+    denoise="default",
+):
+    """Unconditional sampling function of a recipe (``sampling.method``
+    ``pc``; the ODE sampler waits for ROADMAP.md section 1, item 8).
+
+    Returns ``fn(noise, model, show_evolution=False) -> (samples, info)``.
+    """
+    predictor, corrector, p_steps, c_steps, snr, denoise = _resolve(
+        config, predictor, corrector, p_steps, c_steps, snr, denoise
+    )
+    method = config.sampling.method.lower()
+    if method == "ode":
+        raise NotImplementedError("the ODE sampler is not ported (ROADMAP.md section 1, item 8)")
+    if method != "pc":
+        raise ValueError(f"Sampler name {config.sampling.method!r} unknown.")
+
+    pc = get_pc_sampler(
+        sde=sde,
+        shape=shape,
+        predictor=predictor,
+        corrector=corrector,
+        snr=snr,
+        p_steps=p_steps,
+        c_steps=c_steps,
+        probability_flow=config.sampling.probability_flow,
+        denoise=denoise,
+        eps=eps,
+    )
+
+    def fn(noise, model, show_evolution: bool = False):
+        score_fn = get_score_fn(sde, model, conditional=False, train=False, continuous=config.training.continuous)
+        return pc(noise, score_fn, show_evolution=show_evolution)
 
     return fn

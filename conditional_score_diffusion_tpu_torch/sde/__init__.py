@@ -1,4 +1,4 @@
-"""Diffusion SDEs (the VE family and the multi-speed dict SDE).
+"""Diffusion SDEs: VE, VP, sub-VP and the multi-speed dict SDE.
 
 A multi-speed SDE is a dict ``{'x': VESDE(...), 'y': VESDE(...)}``, as in
 the JAX package.
@@ -7,5 +7,6 @@ the JAX package.
 from .base import ReverseSDE, batch_mul
 from .factory import build_sde, is_multispeed
 from .ve import VESDE
+from .vp import VPSDE, subVPSDE
 
-__all__ = ["ReverseSDE", "batch_mul", "VESDE", "build_sde", "is_multispeed"]
+__all__ = ["ReverseSDE", "batch_mul", "VESDE", "VPSDE", "subVPSDE", "build_sde", "is_multispeed"]

@@ -1,4 +1,5 @@
-"""Build the VE SDEs from a recipe (the VE branches of JAX `sde/factory.py`)."""
+"""Build the SDE of a recipe (JAX `sde/factory.py`): VP, sub-VP, and the VE
+family (one VE SDE, or the multi-speed dict of a conditional recipe)."""
 
 from __future__ import annotations
 
@@ -7,8 +8,9 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from .ve import VESDE
+from .vp import VPSDE, subVPSDE
 
-SDELike = Union[VESDE, Dict[str, VESDE]]
+SDELike = Union[VESDE, VPSDE, subVPSDE, Dict[str, VESDE]]
 
 
 def is_multispeed(sde) -> bool:
@@ -35,14 +37,18 @@ def build_sde(
     sigma_min_y: Optional[float] = None,
     sigma_max_y: Optional[float] = None,
 ) -> Tuple[SDELike, float]:
-    """Return ``(sde, sampling_eps)`` for a VE recipe.
+    """Return ``(sde, sampling_eps)`` for a recipe.
 
     ``sigma_min_y`` / ``sigma_max_y`` override the recipe's values.
     """
     name = config.training.sde.lower()
     model = config.model
+    if name == "vpsde":
+        return VPSDE(beta_min=model.beta_min, beta_max=model.beta_max, N=model.num_scales), 1e-3
+    if name == "subvpsde":
+        return subVPSDE(beta_min=model.beta_min, beta_max=model.beta_max, N=model.num_scales), 1e-3
     if name != "vesde":
-        raise NotImplementedError(f"SDE {config.training.sde!r} is not ported; only 'vesde' is")
+        raise NotImplementedError(f"SDE {config.training.sde!r} unknown.")
 
     if not is_conditional_config(config):
         sde = VESDE(

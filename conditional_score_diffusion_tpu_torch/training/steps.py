@@ -20,7 +20,7 @@ the JAX key chain's ``t`` and noise instead (``noise=``).
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -76,21 +76,31 @@ def apply_gradients(state: TrainState, named_params) -> torch.Tensor:
     return g_norm
 
 
-def _split(tree: Mapping[str, torch.Tensor], accum: int, i: int) -> Dict[str, torch.Tensor]:
+def _split(tree, accum: int, i: int):
+    """Micro-batch ``i`` of ``accum`` of a tensor or a dict of tensors."""
+    if torch.is_tensor(tree):
+        return tree.chunk(accum)[i]
     return {k: v.chunk(accum)[i] for k, v in tree.items()}
+
+
+def _first(batch) -> torch.Tensor:
+    """A tensor of ``batch``: itself (an unconditional batch) or a value."""
+    return batch if torch.is_tensor(batch) else next(iter(batch.values()))
 
 
 def make_train_step(config, model: torch.nn.Module, data_mean=None) -> Callable:
     """``train_step(state, batch, noise=None, events=None) -> metrics``.
 
-    ``batch`` a dict of device tensors.  Gradient accumulation
+    ``batch`` a dict of device tensors, or one tensor for an unconditional
+    recipe.  Gradient accumulation
     (``training.accumulate_grad_batches``): the batch is split into that
     many micro-batches, their gradients are summed and divided by their
     number (the JAX scan's order), and one optimizer and EMA update is
     made: the large batch's update with micro-batch activation memory.
 
     ``noise``: the full batch's ``t`` and per-domain noise (a dict with key
-    ``'t'`` and the domains), split like the batch, in place of the draws.
+    ``'t'`` and the domains; unconditional: ``'x'``), split like the batch,
+    in place of the draws.
     ``events``: a list to which CUDA events are appended at the start, after
     the forward and loss, after the backward and after the update (one
     micro-batch); for timing one step.
@@ -107,11 +117,11 @@ def make_train_step(config, model: torch.nn.Module, data_mean=None) -> Callable:
             ev.record()
             events.append(ev)
 
-    def train_step(state: TrainState, batch: Mapping[str, torch.Tensor], noise=None, events=None) -> Dict[str, Any]:
-        B = next(iter(batch.values())).shape[0]
+    def train_step(state: TrainState, batch, noise=None, events=None) -> Dict[str, Any]:
+        B = _first(batch).shape[0]
         if B % accum:
             raise ValueError(f"training.batch_size ({B}) must be divisible by accumulate_grad_batches ({accum})")
-        device = next(iter(batch.values())).device
+        device = _first(batch).device
         sde = sde_fn(state.step)
         for p in params:
             p.grad = None

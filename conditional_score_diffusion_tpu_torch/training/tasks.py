@@ -2,8 +2,7 @@
 ``training.lightning_module`` names the task that binds config and model
 into the SDE of a step, batch preparation and the sampler.
 
-Ported: ``base`` (its SDE; its sampler waits for the unconditional
-sampler, ROADMAP.md section 1, item 2), ``conditional`` (CDE/CDiffE/CMDE)
+Ported: ``base`` (an unconditional model), ``conditional`` (CDE/CDiffE/CMDE)
 and ``conditional_decreasing_variance`` (VS-CMDE: the SDE of a step carries
 the scheduled sigma_y).  The Haar tasks wait for ROADMAP.md section 1, item
 7, and the deprecated single-sigma variant is not ported.
@@ -14,7 +13,7 @@ from __future__ import annotations
 from typing import Callable
 
 from .. import registry
-from ..sampling import get_conditional_sampling_fn
+from ..sampling import get_conditional_sampling_fn, get_sampling_fn
 from ..sde import build_sde
 from .schedules import sigma_y_at_step
 
@@ -46,7 +45,8 @@ class BaseTask:
         return batch
 
     def sampling_fn(self, shape, **overrides) -> Callable:
-        raise NotImplementedError("the unconditional sampler is not ported (ROADMAP.md section 1, item 2)")
+        """``fn(noise, model, show_evolution=False) -> (samples, info)``."""
+        return get_sampling_fn(self.config, self.sde, shape, self.sampling_eps, **overrides)
 
 
 @register_trainable(name="conditional")
@@ -56,7 +56,7 @@ class ConditionalTask(BaseTask):
     conditional = True
 
     def sampling_fn(self, shape, **overrides) -> Callable:
-        """``fn(noise, model, y) -> (samples, info)``."""
+        """``fn(noise, model, y, show_evolution=False) -> (samples, info)``."""
         return get_conditional_sampling_fn(self.config, self.sde, shape, self.sampling_eps, **overrides)
 
 
@@ -71,5 +71,6 @@ class DecreasingVarianceConditionalTask(ConditionalTask):
 
     def reconfigure(self, step: int):
         """The sampler's SDE at a checkpoint's step."""
-        self.sde, self.sampling_eps = build_sde(self.config, *sigma_y_at_step(self.config, step))
+        smin_y, smax_y = sigma_y_at_step(self.config, step)
+        self.sde, self.sampling_eps = build_sde(self.config, sigma_min_y=smin_y, sigma_max_y=smax_y)
         return self.sde

@@ -42,7 +42,10 @@ from .steps import make_eval_step, make_train_step, seeded, step_seed
 from .tasks import create_task
 
 
-def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+def to_device(batch, device: torch.device):
+    """A host batch (an array, or a dict of arrays) as tensors on ``device``."""
+    if isinstance(batch, np.ndarray):
+        return torch.from_numpy(batch).to(device)
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 

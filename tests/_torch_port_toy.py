@@ -187,3 +187,50 @@ def hold_gradients(got, want, tol: float, noise_level: float = 1e-6):
         err = (got[name] - g).abs().max().item()
         tmax = g.abs().max().item()
         assert err <= (tol * tmax if tmax >= noise_level * top else noise_level * top), (name, err, tmax, top)
+
+
+def ncsnpp_toy_config(base, embedding_type="positional", fir=True, name="ncsnpp"):
+    """A 16px unconditional NCSN++ recipe in either framework (``base``: its
+    configs.base): nf=16, ch_mult (1, 2), one BigGAN resblock a level,
+    attention at 8, no progressive pyramids; dropout 0."""
+    c = base.base_config()
+    base.image_model_defaults(c.model)
+    m, d = c.model, c.data
+    m.name, m.nf, m.ch_mult, m.num_res_blocks, m.attn_resolutions = name, 16, (1, 2), 1, (8,)
+    m.dropout, m.fir, m.embedding_type = 0.0, fir, embedding_type
+    d.image_size = d.effective_image_size = 16
+    d.num_channels, d.shape = 3, [3, 16, 16]
+    return c
+
+
+def jax_init_params(config, seed: int = 1):
+    """The JAX module and its params (`init_model`), every leaf redrawn by
+    `randomize_params` but a Fourier projection's W (it keeps its
+    N(0, 16^2) draw)."""
+    from conditional_score_diffusion_tpu.models import init_model
+
+    try:
+        module, params = init_model(config, jax.random.key(0))
+    finally:
+        reset_jax_dispatch()
+    params = jax.device_get(params)
+    out = randomize_params(params, seed)
+    tree = params.get("unet", params)
+    if "fourier" in tree:
+        out.get("unet", out)["fourier"]["W"] = np.asarray(tree["fourier"]["W"])
+    return module, out
+
+
+def jax_unconditional_draws(key, p_steps, shape, predictor, corrector, c_steps=1):
+    """The JAX unconditional sampler's draws (`sampling/pc.py:get_pc_sampler`:
+    the prior, then each step the corrector's ``fold_in(rc, i)`` for each of
+    its steps and the predictor's ``rp``; ``none`` draws nothing)."""
+    rng, prior = jax.random.split(key)
+    draws = [jax.random.normal(prior, shape)]
+    for _ in range(p_steps):
+        rng, rc, rp = jax.random.split(rng, 3)
+        if corrector.removeprefix("conditional_") != "none":
+            draws += [jax.random.normal(jax.random.fold_in(rc, i), shape) for i in range(c_steps)]
+        if predictor.removeprefix("conditional_") != "none":
+            draws.append(jax.random.normal(rp, shape))
+    return draws

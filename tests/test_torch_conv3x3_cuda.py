@@ -21,9 +21,9 @@ from conditional_score_diffusion_tpu_torch.ops import conv3x3 as ops
 
 # (H, Cin, Cout) at B=16: the 160x160 convs (the input conv, the 96-channel
 # convs and the output conv), 80x80 with 192 in, 20x20 288 -> 192, the 10x10
-# convs, 5x5 (split 8 ways).
+# convs, 5x5 (split 8 ways); CDE's 3-channel output conv and its dx.
 SHAPES = [(160, 6, 96), (160, 96, 96), (160, 96, 6), (80, 192, 96), (20, 288, 192), (10, 192, 288),
-          (10, 288, 288), (5, 288, 288)]
+          (10, 288, 288), (5, 288, 288), (160, 96, 3), (160, 3, 96)]
 # (B, H, W, Cin, Cout) off the flagship's widths: Cin = 6 and Cout = 6 on
 # ragged M (3 * 7 * 5 pixels), an odd channel count (one-element copies in
 # both operands), 4x4 images.
@@ -93,7 +93,7 @@ def test_split_k_is_deterministic_and_agrees_unsplit(device, h, cin, cout, dtype
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,cin,cout", [(160, 96, 6), (40, 96, 192), (10, 288, 192)])
+@pytest.mark.parametrize("h,cin,cout", [(160, 96, 6), (160, 96, 3), (40, 96, 192), (10, 288, 192)])
 def test_input_gradient_matches_conv2d(device, h, cin, cout):
     """The backward's dx (one more launch: the kernel on the output gradient
     with the weights rotated and Cin/Cout swapped) against F.conv2d's, on

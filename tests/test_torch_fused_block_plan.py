@@ -21,7 +21,7 @@ import torch
 from _torch_port_splitk import check_plan, split_k_block
 
 from conditional_score_diffusion_tpu_torch.models import layers
-from conditional_score_diffusion_tpu_torch.ops import conv3x3, fir, fused_block
+from conditional_score_diffusion_tpu_torch.ops import conv3x3, fused_block
 from conditional_score_diffusion_tpu_torch.ops.conv3x3 import hwio
 
 torch.set_num_threads(1)
@@ -46,31 +46,28 @@ def _configs():
     }
 
 
-def _sites(path, monkeypatch):
+def _sites(path):
     """The block sites of ``path``, counted on the meta device, as
     (batch, {(kernel, H, Ca, Cb, Cout): calls per forward}).  The NCSN++
-    model takes a 40x40 y and runs the FIR kernels, stubbed here."""
+    model takes a 40x40 y."""
     import chip_smoke
 
     batch, config = _configs()[path]
     inputs = None
     if path == "ncsnpp":
         meta = lambda *s: torch.empty(*s, device="meta")  # noqa: E731
-        monkeypatch.setattr(fir, "fir_upsample2", lambda x, *a, **k: meta(x.shape[0], 2 * x.shape[1],
-                                                                         2 * x.shape[2], x.shape[3]))
-        monkeypatch.setattr(fir, "fir_downsample2", lambda x, *a, **k: meta(x.shape[0], x.shape[1] // 2,
-                                                                           x.shape[2] // 2, x.shape[3]))
         inputs = {"x": meta(batch, 160, 160, 3), "y": meta(batch, 40, 40, 3)}
-    return batch, chip_smoke.block_call_shapes(config, batch, inputs)
+    calls = chip_smoke.forward_calls(config, batch, inputs)
+    return batch, chip_smoke.sites(calls, "resblock_fused", "resblock_fused_split")
 
 
 @pytest.mark.parametrize("path", ["flagship", "ncsnpp", "texture64"])
-def test_block_sites_match_chip_smoke(path, monkeypatch):
+def test_block_sites_match_chip_smoke(path):
     """The sites `chip_smoke.py` checks and times are the ones each model
     calls, as often as it says."""
     import chip_smoke
 
-    _, sites = _sites(path, monkeypatch)
+    _, sites = _sites(path)
     if path == "flagship":
         assert sites == {(n, h, ca, cb, co): k for n, h, ca, cb, co, k in chip_smoke.BLOCK_SHAPES}
     elif path == "ncsnpp":
@@ -82,13 +79,13 @@ def test_block_sites_match_chip_smoke(path, monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("path", ["flagship", "ncsnpp", "texture64"])
-def test_launch_plans_at_every_block_site(path, dtype, monkeypatch):
+def test_launch_plans_at_every_block_site(path, dtype):
     """conv0 (K = 9 * Cin) and conv1 with the folded shortcut (K = 9 * Cout
     + Cin for a channel mix) at each site: whole chunks per split, K covered
     once, split over a cluster (no site fills the SMs with its tiles), 16-byte
     copies on both operands, no wasted output column, the shared memory
     within the SM's."""
-    batch, sites = _sites(path, monkeypatch)
+    batch, sites = _sites(path)
     for name, h, ca, cb, cout in sites:
         cin, mix = ca + cb, ca + cb != cout
         plan0, plan1 = fused_block.block_plans(batch, h, h, ca, cb, cout, dtype, mix)

@@ -97,7 +97,9 @@ def _sampler_tail_shapes():
 
     shapes = {(chip_smoke.BATCH, h, c) for h, c, *_ in chip_smoke.TAIL_SHAPES}
     shapes |= {(chip_smoke.BATCH, h, c) for h, c in chip_smoke.NCSNPP_TAIL_SHAPES}
-    harness = chip_smoke.tail_call_shapes(chip_smoke.harness_config(""), chip_smoke.HARNESS_BATCH)
+    harness = chip_smoke.sites(
+        chip_smoke.forward_calls(chip_smoke.harness_config(""), chip_smoke.HARNESS_BATCH), "gn_silu_conv3x3"
+    )
     assert sum(harness.values()) == 17
     shapes |= {(chip_smoke.HARNESS_BATCH, h, c) for h, c in harness}
     return sorted(shapes)

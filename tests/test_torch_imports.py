@@ -65,6 +65,7 @@ def test_port_imports_without_jax():
         "models.ema", "training.state", "training.steps", "training.tasks", "training.checkpoint",
         "training.trainer", "main", "configs.texture160_sr_cmde_conv3x3", "profile_train_step",
         "ops.fused_act", "eval.metrics", "eval.harness", "eval.pipeline", "configs.texture64_sr_cmde",
-        "configs.texture64_sr_cmde_test",
+        "configs.texture64_sr_cmde_test", "sde.vp", "configs.extra", "configs.texture160_sr",
+        "configs.texture64_sr_dv", "sampling.pc", "sampling.predictors", "sampling.correctors",
     ):
         assert f"conditional_score_diffusion_tpu_torch.{name}" in names, name

@@ -110,7 +110,9 @@ def test_harness_tail_calls_per_forward():
     4x4x192), at the shapes its kernel phase checks."""
     import chip_smoke
 
-    calls = chip_smoke.tail_call_shapes(chip_smoke.harness_config(""), chip_smoke.HARNESS_BATCH)
+    calls = chip_smoke.sites(
+        chip_smoke.forward_calls(chip_smoke.harness_config(""), chip_smoke.HARNESS_BATCH), "gn_silu_conv3x3"
+    )
     assert calls == {(16, 128): 5, (8, 128): 5, (4, 192): 7}
 
 

@@ -1,7 +1,8 @@
 """The port's losses, train step, EMA and train-state converter against the
 JAX package, on the toy `ddpm_paired` (`_torch_port_toy`: 32px, nf=32,
 ch_mult (1, 2, 2)) with the same weights (`models/convert.py`), dropout 0
-and batch 2.
+and batch 2; the unconditional loss on a 16px NCSN++
+(`_torch_port_toy.ncsnpp_toy_config`) under VE, VP and sub-VP.
 
 jax.random and torch.Generator cannot agree, so every JAX draw (t and the
 noise of each domain, in the key chain of `losses/continuous.py:58-86`
@@ -42,9 +43,11 @@ import torch
 
 from _torch_port_toy import (
     hold_gradients,
+    jax_init_params,
     jax_loss_draws,
     jax_step_draws,
     jax_toy_params,
+    ncsnpp_toy_config,
     reset_jax_dispatch,
     to_torch,
     toy_inputs,
@@ -139,12 +142,65 @@ def test_sr3_loss_matches_jax(likelihood_weighting):
     assert abs(got - want) <= LOSS_RTOL * abs(want), (got, want)
 
 
-def test_unconditional_loss_names_its_roadmap_item():
-    _, tconfig = train_toy_configs()
-    del tconfig.training.conditioning_approach
-    tconfig.training.lightning_module = "base"
-    with pytest.raises(NotImplementedError, match="item 2"):
-        build_loss_fn(tconfig, torch.nn.Identity(), None, train=True)
+UNCONDITIONAL = [("vesde", False), ("vesde", True), ("vpsde", False), ("subvpsde", True)]
+
+
+def _unconditional_case(sde_name, likelihood_weighting):
+    """A 16px NCSN++ (`_torch_port_toy.ncsnpp_toy_config`) under ``sde_name``,
+    its JAX params, a batch in [0, 1] and the JAX loss's draws (t, then z:
+    `losses/continuous.py`'s unconditional branch splits its key in 3)."""
+    from conditional_score_diffusion_tpu.configs import base as jax_base
+    from conditional_score_diffusion_tpu_torch.configs import base as torch_base
+
+    configs = [ncsnpp_toy_config(jax_base), ncsnpp_toy_config(torch_base)]
+    for c in configs:
+        c.training.sde = sde_name
+        c.training.likelihood_weighting = likelihood_weighting
+    module, params = jax_init_params(configs[0], seed=2)
+    batch = np.random.RandomState(3).rand(2, 16, 16, 3).astype(np.float32)
+    rng = jax.random.key(6)
+    rng_t, rng_z, _ = jax.random.split(rng, 3)
+    eps = 1e-5
+    t = np.asarray(jax.random.uniform(rng_t, (2,), minval=eps, maxval=1.0))
+    z = np.asarray(jax.random.normal(rng_z, batch.shape))
+    return configs, module, params, batch, rng, t, z
+
+
+@pytest.mark.parametrize("sde_name,likelihood_weighting", UNCONDITIONAL)
+def test_unconditional_loss_matches_jax(sde_name, likelihood_weighting):
+    """The unconditional branch (no ``conditioning_approach``): the batch a
+    bare tensor, diffused at t and scored unconditionally."""
+    (jconfig, tconfig), module, params, batch, rng, t, z = _unconditional_case(sde_name, likelihood_weighting)
+    jsde, _ = jax_build_sde(jconfig)
+    try:
+        want = float(jax.jit(lambda p: jax_build_loss_fn(jconfig, module, jsde, train=True)(p, jsde, batch, rng))(params))
+    finally:
+        reset_jax_dispatch()
+    model = _port_model(tconfig, params)
+    sde = build_sde(tconfig)[0]
+    got = build_loss_fn(tconfig, model, sde, train=True)(
+        sde, torch.from_numpy(batch), t=torch.from_numpy(t), noise={"x": torch.from_numpy(z)}
+    ).item()
+    assert abs(got - want) <= LOSS_RTOL * abs(want), (got, want)
+
+
+@pytest.mark.parametrize("sde_name,likelihood_weighting", UNCONDITIONAL[:3:2])
+def test_unconditional_gradients_match_jax(sde_name, likelihood_weighting):
+    """Every parameter's gradient of the unconditional loss against `jax.grad`."""
+    (jconfig, tconfig), module, params, batch, rng, t, z = _unconditional_case(sde_name, likelihood_weighting)
+    jsde, _ = jax_build_sde(jconfig)
+    try:
+        grads = jax.jit(jax.grad(lambda p: jax_build_loss_fn(jconfig, module, jsde, train=True)(p, jsde, batch, rng)))(params)
+    finally:
+        reset_jax_dispatch()
+    want = flax_to_state_dict(jax.device_get(grads))
+    model = _port_model(tconfig, params)
+    sde = build_sde(tconfig)[0]
+    build_loss_fn(tconfig, model, sde, train=True)(
+        sde, torch.from_numpy(batch), t=torch.from_numpy(t), noise={"x": torch.from_numpy(z)}
+    ).backward()
+    got = {n: p.grad for n, p in model.named_parameters()}
+    hold_gradients({n: got[n] for n in want}, want, GRAD_TOL, NOISE_LEVEL)
 
 
 def test_gradients_match_jax(toy):
