@@ -141,8 +141,32 @@ Phases, each printing its own line with its seconds:
    one Langevin step's size against (snr |z| / |score|)^2 2 alpha with
    alpha = alphas[timestep] under VP (1e-5); a loss and backward with finite
    gradients; no kernel runs, so every counter reads 0.
-13. result: a JSON line of the kernels (with each one's launches on the
-   paths of phases 10-12), the nvidia-smi line, and last
+13. main (the trained texture64 Haar pyramid, new): ``main.py --mode
+   multi_scale_test --config texture64_multiscale_master`` in-process: the
+   two VS-CMDE detail scales (16px DC -> 32px -> 64px, ddpm_paired nf=48)
+   with their converted EMA files, sigma_y at each checkpoint's step,
+   texture64 test batch 0 (B=8), 2000 steps a scale, float32, kernels off
+   as JAX runs it; every counter 0; its PSNR and SSIM against the final
+   GT within `PYRAMID_BAND` (set from the JAX chain's spread over seeds
+   42-44 on the same checkpoints and batch), its zero-detail control at
+   JAX's (1e-4).  Then the _block variant (kernels 1-3) against it on a
+   3-step chain: final images at 1e-4, launches exact.
+14. main (the celebA-HQ-160 sequential chains on texture160, new): scales
+   40 (nf 96), 80 (nf 96) and 160 (nf 64), random weights read from EMA
+   files: the Haar chain (ddpm_paired on the detail bands) kernels on
+   against off over 3 steps a scale, then its _block variant over 20 steps
+   a scale, ms per score evaluation per scale; the bicubic chain
+   (ddpm_2xSR) on per-scale LQ/GT files made from the texture160 test split
+   with the port's bicubic resize, its _block variant over 3 steps a scale.
+   Kernels 1-3 counted exactly (their calls per forward of each scale on
+   the meta device, `chain_sites`, whose sites the kernel phase checked
+   against the plain versions with the DDPM's groups: `check_chain_sites`).
+15. main (the direct 8x ddpm_KxSR, new): nf 96, ch_mult (1,1,2,2,3,3),
+   random weights, the first 8 texture160 test images, y their 20px
+   bicubic LQ: kernels on against off (`agreement`), then 5 steps with
+   fused_block and fused_tail, the flagship's calls per forward.
+16. result: a JSON line of the kernels (with each one's launches on the
+   paths of phases 10-15), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -163,14 +187,18 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
+from conditional_score_diffusion_tpu_torch import main as cli  # noqa: E402
 from conditional_score_diffusion_tpu_torch.configs import (  # noqa: E402
     cifar10_vp_config,
+    texture160_direct_8x_block_config,
+    texture160_direct_8x_config,
     texture160_kxsr_ncsnpp_block_config,
     texture160_kxsr_ncsnpp_config,
     texture160_sr_cmde_bf16_block_config,
@@ -181,12 +209,25 @@ from conditional_score_diffusion_tpu_torch.configs import (  # noqa: E402
     texture160_sr_vscmde_config,
     texture160_sr_vscmde_slow_config,
     texture160_unconditional_ncsnpp_config,
+    texture64_multiscale_master_block_config,
+    texture64_multiscale_master_config,
     texture64_sr_cmde_test_config,
 )
-from conditional_score_diffusion_tpu_torch.data.pkl_datasets import PKLDataModule, iter_test_batches  # noqa: E402
+from conditional_score_diffusion_tpu_torch.configs.multiscale import (  # noqa: E402
+    texture160_sequential_master_config,
+    write_texture160_sequential_data,
+)
+from conditional_score_diffusion_tpu_torch.data.degradations import bicubic_lq_images  # noqa: E402
+from conditional_score_diffusion_tpu_torch.data.pkl_datasets import (  # noqa: E402
+    PKLDataModule,
+    iter_test_batches,
+    load_pkl_images,
+)
+from conditional_score_diffusion_tpu_torch.eval import multiscale  # noqa: E402
 from conditional_score_diffusion_tpu_torch.eval.harness import load_model, output_dir, run_test  # noqa: E402
 from conditional_score_diffusion_tpu_torch.eval.pipeline import load_images, numbered, run_evaluation_pipeline  # noqa: E402
 from conditional_score_diffusion_tpu_torch.models import create_model, init_model_random, layers  # noqa: E402
+from conditional_score_diffusion_tpu_torch.models.layers import legacy_num_groups  # noqa: E402
 from conditional_score_diffusion_tpu_torch.models.wrappers import (  # noqa: E402
     get_conditional_score_fn,
     get_model_fn,
@@ -205,7 +246,7 @@ from conditional_score_diffusion_tpu_torch.sampling import (  # noqa: E402
 )
 from conditional_score_diffusion_tpu_torch.sde import VPSDE, batch_mul, build_sde, is_multispeed  # noqa: E402
 from conditional_score_diffusion_tpu_torch.sde.factory import is_conditional_config  # noqa: E402
-from conditional_score_diffusion_tpu_torch.training.checkpoint import CheckpointManager  # noqa: E402
+from conditional_score_diffusion_tpu_torch.training.checkpoint import CheckpointManager, save_ema  # noqa: E402
 from conditional_score_diffusion_tpu_torch.training.schedules import is_decreasing_variance, sigma_y_at_step  # noqa: E402
 from conditional_score_diffusion_tpu_torch.training.state import create_train_state  # noqa: E402
 from conditional_score_diffusion_tpu_torch.training.steps import make_train_step  # noqa: E402
@@ -382,6 +423,64 @@ EVOLUTION_TOL = 1e-6  # the same kernels on the same inputs: only a library's ch
 # FIR calls of one unconditional NCSN++ forward (128px, B=8; BigGAN down at
 # 128/64/32, up at 16/32/64, h and x each), none at the DF2K path's shapes.
 PER_FORWARD_UNCOND_PATH = {"fir_upsample2": 6, "fir_downsample2": 6}
+
+# The multi-scale chains (``--mode multi_scale_test``), B=8, float32.  The
+# trained texture64 Haar pyramid at the JAX chain's 2000 steps per scale,
+# kernels off as in JAX; its batch-0 PSNR and SSIM must fall in the band
+# set from the JAX chain's own spread on the same checkpoints and batch (3
+# draws, seeds 42-44, on a CPU: `PYRAMID_JAX`): their range widened by half
+# its width on each side, at least PSNR +-0.5 dB and SSIM +-0.015 around
+# their mean.  Its zero-detail control is pure math: JAX's at 1e-4.
+PYRAMID_STEPS, PYRAMID_SHORT = 2000, 3
+PYRAMID_JAX = {"psnr": [25.26880645751953, 24.430906295776367, 24.8092098236084],
+               "ssim": [0.3762507140636444, 0.31682971119880676, 0.3698098659515381],
+               "dc_only_psnr": 35.33884048461914, "dc_only_ssim": 0.8255559802055359}
+PYRAMID_BAND = {"psnr": (24.011956214904785, 25.687756538391113), "ssim": (0.28711920976638794, 0.40596121549606323)}
+DC_ONLY_TOL = 1e-4
+# The celebA-HQ-160 sequential chains on texture160 (random weights): the
+# Haar chain timed over `CHAIN_STEPS` per scale, the bicubic chain
+# (ddpm_2xSR) over `BICUBIC_STEPS`; kernels on against off over
+# `PYRAMID_SHORT` steps per scale (final images, 1e-4 of their largest
+# magnitude); the direct 8x ddpm_KxSR sampler over `DIRECT8X_STEPS`.
+CHAIN_STEPS, BICUBIC_STEPS, DIRECT8X_STEPS = 20, 3, 5
+CHAIN_AGREE_TOL = 1e-4
+# Kernels 1-3 calls per forward of each scale of the chains' _block variants
+# (counted on the meta device by `forward_calls`): the pyramid's (both
+# scales: tails at 16x16x48, blocks at 8x8) and the sequential chains' (each
+# of 40, 80, 160, Haar and bicubic alike).  The direct 8x sampler makes the
+# flagship's calls (`flagship_block_path_calls`).
+PYRAMID_PER_FORWARD = {"gn_silu_conv3x3": 5, "resblock_fused": 4, "resblock_fused_split": 3}
+SEQUENTIAL_PER_FORWARD = {"gn_silu_conv3x3": 5, "resblock_fused": 6, "resblock_fused_split": 6}
+# Their sites, B=8, none of them a site of an earlier path: the tails (H, C)
+# and the blocks (kernel, H, Ca, Cb, Cout), each with the DDPM's GroupNorm
+# groups (`legacy_num_groups`: 16 groups of 3 at C = 48 and of 9 at 144,
+# else 32 groups of C / 32: 3 to 12 channels a group).  The resblocks' conv1
+# is Cout -> Cout; the 12-channel conv_out is no kernel's (in JAX neither).
+CHAIN_TAIL_SHAPES = [(16, 48), (20, 96), (20, 128)]
+CHAIN_BLOCK_SHAPES = [
+    ("resblock_fused", 8, 48, 0, 96),  # pyramid: NIN shortcut, 16 groups of 3 in
+    ("resblock_fused", 8, 96, 0, 96),
+    ("resblock_fused_split", 8, 96, 48, 96),  # 144 in: 16 groups of 9, one straddling channel 96
+    ("resblock_fused_split", 8, 96, 96, 96),
+    ("resblock_fused", 10, 96, 0, 96),  # scale 40
+    ("resblock_fused", 5, 96, 0, 192),
+    ("resblock_fused", 5, 192, 0, 192),
+    ("resblock_fused_split", 5, 192, 96, 192),
+    ("resblock_fused_split", 5, 192, 192, 192),
+    ("resblock_fused_split", 10, 96, 96, 96),
+    ("resblock_fused_split", 10, 192, 96, 96),
+    ("resblock_fused", 10, 96, 0, 192),  # scale 80
+    ("resblock_fused", 10, 192, 0, 192),
+    ("resblock_fused_split", 10, 192, 96, 192),
+    ("resblock_fused_split", 10, 192, 192, 192),
+    ("resblock_fused", 10, 128, 0, 128),  # scale 160
+    ("resblock_fused", 5, 128, 0, 256),
+    ("resblock_fused", 5, 256, 0, 256),
+    ("resblock_fused_split", 5, 256, 128, 256),
+    ("resblock_fused_split", 5, 256, 256, 256),
+    ("resblock_fused_split", 10, 128, 128, 128),
+    ("resblock_fused_split", 10, 256, 128, 128),  # 384 in: 12-channel groups
+]
 
 WRAPPERS = {
     "gn_silu_conv3x3": fused_tail.gn_silu_conv3x3,
@@ -1839,6 +1938,255 @@ def run_vp(name):
     return result
 
 
+# ---- the multi-scale chains (--mode multi_scale_test) ----------------------
+
+
+def chain_inputs(config, batch, device="meta"):
+    """One scale's model inputs at the recipe's shapes: x and y from
+    ``data.shape_x`` / ``shape_y`` (CHW), ddpm_KxSR's y at
+    ``target_resolution / scale`` (its LQ image as it is)."""
+    cx, hx, wx = config.data.shape_x
+    cy, hy, wy = config.data.shape_y
+    if config.model.name == "ddpm_KxSR":
+        hy = wy = config.data.target_resolution // config.data.scale
+    return {"x": torch.empty(batch, hx, wx, cx, device=device), "y": torch.empty(batch, hy, wy, cy, device=device)}
+
+
+def chain_calls(master):
+    """`forward_calls` of one forward of each scale of ``master``, by image
+    size, at B=8."""
+    return {int(c.data.image_size): forward_calls(c, BATCH, chain_inputs(c, BATCH))
+            for c in multiscale.scale_configs(master)}
+
+
+def chain_sites():
+    """Kernels 1-3 sites of every chain's _block variant (the pyramid, the
+    Haar and bicubic sequential chains) as `CHAIN_TAIL_SHAPES` and
+    `CHAIN_BLOCK_SHAPES` list them, and each scale's calls per forward; the
+    direct 8x sampler's against the flagship's.  Raises where one differs."""
+    with tempfile.TemporaryDirectory() as data_dir:
+        masters = {
+            "pyramid": texture64_multiscale_master_block_config(),
+            "haar": texture160_sequential_master_config("haar", block=True),
+            "bicubic": texture160_sequential_master_config("bicubic", data_dir, block=True,
+                                                           source_dir=os.path.join(REPO, "datasets")),
+        }
+        calls = {name: chain_calls(m) for name, m in masters.items()}
+    union = collections.Counter()
+    for name, by_size in calls.items():
+        want = PYRAMID_PER_FORWARD if name == "pyramid" else SEQUENTIAL_PER_FORWARD
+        for size, c in by_size.items():
+            union.update(c)
+            if per_name(c) != want:
+                raise RuntimeError(f"{name} chain, scale {size}: kernel calls per forward {per_name(c)}, expected {want}")
+    tails = set(sites(union, "gn_silu_conv3x3"))
+    blocks = set(sites(union, "resblock_fused", "resblock_fused_split"))
+    if tails != set(CHAIN_TAIL_SHAPES) or blocks != {tuple(b) for b in CHAIN_BLOCK_SHAPES}:
+        raise RuntimeError(f"chain sites {sorted(tails)} {sorted(blocks)}, expected `CHAIN_TAIL_SHAPES`,"
+                           " `CHAIN_BLOCK_SHAPES`")
+    direct = texture160_direct_8x_block_config()
+    if forward_calls(direct, BATCH, chain_inputs(direct, BATCH)) != flagship_block_path_calls():
+        raise RuntimeError("direct 8x ddpm_KxSR: kernel calls per forward differ from the flagship's")
+    return calls
+
+
+def check_chain_sites():
+    """Kernels 1-3 against plain at every chain site, with the DDPM's groups,
+    float32 and bfloat16, with and without temb; checked, not timed (the
+    paths' time is their sampler's)."""
+    for h, c in CHAIN_TAIL_SHAPES:
+        g = legacy_num_groups(c)
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_temb in (False, True):
+                x, w, gamma, beta, bias, temb = tail_inputs(h, c, dtype, seed=h * c + 3)
+                temb = temb if with_temb else None
+                check_close(f"chain tail {BATCH}x{h}x{h}x{c} ({g} groups) {dname(dtype)} temb={with_temb}",
+                            fused_tail.gn_silu_conv3x3(x, w, gamma, beta, g, bias=bias, temb=temb),
+                            fused_tail.gn_silu_conv3x3_plain(x, w, gamma, beta, g, bias=bias, temb=temb), dtype)
+    for name, h, ca, cb, cout in CHAIN_BLOCK_SHAPES:
+        g0, g1 = legacy_num_groups(ca + cb), legacy_num_groups(cout)
+        label = f"chain {name} {BATCH}x{h}x{h}x{ca}" + (f"+{cb}" if cb else "") + f"->{cout} ({g0}/{g1} groups)"
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_temb in (True, False):
+                x, skip, kw = block_inputs(h, ca, cb, cout, dtype, seed=h * (ca + cb) + 3, with_temb=with_temb)
+                kw.update(num_groups0=g0, num_groups1=g1)
+                check_close(f"{label} {dname(dtype)} temb={with_temb}",
+                            block_call(x, skip, kw), block_call(x, skip, kw, plain=True), dtype)
+
+
+def random_chain_weights(master, directory, on=None):
+    """Point each scale of ``master`` (and of ``on``, its _block twin) at an
+    EMA file of seeded N(0, 0.02) weights (`init_model_random`, seeded by the
+    scale's size), as a trained chain reads its checkpoints."""
+    for config in multiscale.scale_configs(master):
+        size = int(config.data.image_size)
+        model = init_model_random(config, seed=size, device="cuda")
+        config.model.checkpoint_path = save_ema(os.path.join(directory, f"scale_{size}.pt"), 0, model.state_dict())
+        del model
+    if on is not None:
+        paths = {int(c.data.image_size): c.model.checkpoint_path for c in multiscale.scale_configs(master)}
+        for config in multiscale.scale_configs(on):
+            config.model.checkpoint_path = paths[int(config.data.image_size)]
+
+
+def run_chain(label, master, steps, per_forward, cli_config=None):
+    """One chain over test batch 0, with every kernel counter at 0 just
+    before and read just after: ``steps`` per scale through
+    `run_multi_scale_test`, or (``cli_config``, a recipe name) through
+    ``main.py --mode multi_scale_test`` in-process, whose chain gets the
+    same records.  Checks the launches (``per_forward[size]`` x ``steps``
+    summed over the scales, corrector none: one evaluation a step) and the
+    final images' shape and values.  Returns (result, final images)."""
+    records, out = [], {}
+    with tempfile.TemporaryDirectory() as log_dir:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in WRAPPERS.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        if cli_config is None:
+            out["final"] = multiscale.run_multi_scale_test(master, log_dir, p_steps=steps, device="cuda",
+                                                           scale_records=records)[0]
+        else:
+            real = multiscale.run_multi_scale_test
+
+            def recorded(*args, **kwargs):
+                out["final"] = real(*args, scale_records=records, **kwargs)[0]
+
+            multiscale.run_multi_scale_test = recorded
+            try:
+                cli.main(["--mode", "multi_scale_test", "--config", cli_config, "--log_path", log_dir,
+                          "--data_path", os.path.join(REPO, "datasets")])
+            finally:
+                multiscale.run_multi_scale_test = real
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+        with open(os.path.join(log_dir, "multi_scale", "metrics.json")) as f:
+            metrics = json.load(f)
+        files = sorted(os.listdir(os.path.join(log_dir, "multi_scale")))
+    sizes = sorted(per_forward)
+    expected = {name: sum(per_forward[s].get(name, 0) for s in sizes) * steps for name in WRAPPERS}
+    final = out["final"]
+    top = max(sizes)
+    shape = (BATCH, top, top, 3)
+    finite = bool(np.isfinite(final).all())
+    scales = [dict(image_size=r["image_size"], seconds=r["seconds"], evaluations=r["evaluations"],
+                   ms_per_score_eval=r["seconds"] / r["evaluations"] * 1e3) for r in records]
+    result = dict(path=label, steps_per_scale=steps, wall_s=wall, scales=scales, launches=launches,
+                  expected_launches=expected, metrics=metrics, files=files,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    phase("main", t, f"{label}: {steps} steps a scale, {wall:.3f} s wall; "
+          + ", ".join(f"scale {r['image_size']}: {r['seconds']:.3f} s, {r['ms_per_score_eval']:.3f} ms per score"
+                      " evaluation" for r in scales)
+          + f"; final {final.shape} finite={finite}; psnr {metrics['mean_psnr']:.5f} ssim {metrics['mean_ssim']:.5f};"
+          f" launches {launches} (expected {expected})")
+    if tuple(final.shape) != shape or not finite:
+        raise RuntimeError(f"{label}: final images are not finite or not shaped {shape}")
+    if launches != expected:
+        raise RuntimeError(f"{label}: launches {launches}, expected {expected}")
+    if "pyramid_batch0.png" not in files or len([f for f in files if f.startswith("batch0_")]) != BATCH:
+        raise RuntimeError(f"{label}: the chain wrote {files}")
+    return result, final
+
+
+def chain_agreement(label, on, off, per_forward):
+    """The same chain with the kernels on (``on``) and off (``off``) over
+    `PYRAMID_SHORT` steps a scale, the same draws (the master's seed): final
+    images at `CHAIN_AGREE_TOL` of their largest magnitude; the kernels'
+    launches exact on, none off."""
+    t = time.perf_counter()
+    got_r, got = run_chain(f"{label}, kernels on", on, PYRAMID_SHORT, per_forward)
+    _, want = run_chain(f"{label}, kernels off", off, PYRAMID_SHORT, {s: {} for s in per_forward})
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    ok = err <= CHAIN_AGREE_TOL
+    phase("agreement", t, f"{label}: {PYRAMID_SHORT}-step chain, kernels on vs off: final images rel err {err:.3e}"
+                          f" (tol {CHAIN_AGREE_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{label}: the chain with the kernels disagrees with the chain without")
+    return dict(path=f"{label} chain, kernels on vs off", tol=CHAIN_AGREE_TOL, final_rel_err=err,
+                launches=got_r["launches"])
+
+
+def run_pyramid(calls):
+    """The trained texture64 pyramid: ``main.py --mode multi_scale_test
+    --config texture64_multiscale_master`` at 2000 steps a scale (kernels
+    off, as JAX runs it), its batch-0 PSNR and SSIM in `PYRAMID_BAND` and its
+    zero-detail control at JAX's; then its _block variant against it on a
+    short chain."""
+    per_forward = {s: per_name(c) for s, c in calls.items()}
+    full, _ = run_chain("float32 trained texture64 Haar pyramid (--mode multi_scale_test)", None, PYRAMID_STEPS,
+                        {s: {} for s in per_forward}, cli_config="texture64_multiscale_master")
+    m = full["metrics"]
+    mean = {k: float(np.mean(PYRAMID_JAX[k])) for k in ("psnr", "ssim")}
+    inside = {k: PYRAMID_BAND[k][0] <= m[f"mean_{k}"] <= PYRAMID_BAND[k][1] for k in ("psnr", "ssim")}
+    dc = {k: abs(m[f"dc_only_mean_{k}"] - PYRAMID_JAX[f"dc_only_{k}"]) / PYRAMID_JAX[f"dc_only_{k}"]
+          for k in ("psnr", "ssim")}
+    ok = all(inside.values()) and all(v <= DC_ONLY_TOL for v in dc.values())
+    print(f"  pyramid batch 0: psnr {m['mean_psnr']:.5f} (JAX seeds 42-44 mean {mean['psnr']:.5f}, band"
+          f" {PYRAMID_BAND['psnr']}), ssim {m['mean_ssim']:.5f} (JAX mean {mean['ssim']:.5f}, band"
+          f" {PYRAMID_BAND['ssim']}); zero-detail control psnr {m['dc_only_mean_psnr']:.5f} ssim"
+          f" {m['dc_only_mean_ssim']:.5f} (JAX's, rel err {max(dc.values()):.2e}, tol {DC_ONLY_TOL:.0e})"
+          f" {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"pyramid: batch-0 metrics {m} outside the band set from the JAX chain's spread")
+    full.update(jax=PYRAMID_JAX, band=PYRAMID_BAND)
+    agree = chain_agreement("float32 texture64 pyramid", texture64_multiscale_master_block_config(),
+                            texture64_multiscale_master_config(), per_forward)
+    return full, agree
+
+
+def run_sequential(calls):
+    """The celebA-HQ-160 sequential chains on texture160 (40 -> 80 -> 160,
+    full width, random weights): the Haar chain's kernels on against off,
+    then its _block variant timed over `CHAIN_STEPS` a scale; the bicubic
+    chain (ddpm_2xSR) on per-scale files made from the test split, its
+    _block variant over `BICUBIC_STEPS`."""
+    datasets = os.path.join(REPO, "datasets")
+    paths, agree = [], []
+    with tempfile.TemporaryDirectory() as weights, tempfile.TemporaryDirectory() as data_dir:
+        for space in ("haar", "bicubic"):
+            base = datasets if space == "haar" else write_texture160_sequential_data(data_dir, datasets)
+            on = texture160_sequential_master_config(space, base, block=True)
+            off = texture160_sequential_master_config(space, base)
+            os.makedirs(os.path.join(weights, space))
+            random_chain_weights(off, os.path.join(weights, space), on)
+            per_forward = {s: per_name(c) for s, c in calls[space].items()}
+            if space == "haar":
+                agree.append(chain_agreement("float32 texture160 sequential Haar", on, off, per_forward))
+            steps = CHAIN_STEPS if space == "haar" else BICUBIC_STEPS
+            result, _ = run_chain(f"float32 texture160 sequential {space} chain, fused_block+fused_tail", on, steps,
+                                  per_forward)
+            result["calls_per_forward"] = per_forward
+            paths.append(result)
+    return paths, agree
+
+
+def run_direct_8x():
+    """The direct 8x ddpm_KxSR sampler (nf 96, ch_mult (1,1,2,2,3,3)) on the
+    first 8 texture160 test images, y their 20px bicubic LQ: kernels on
+    against off (`agreement`), then `DIRECT8X_STEPS` with fused_block and
+    fused_tail, counted exactly."""
+    t = time.perf_counter()
+    config = texture160_direct_8x_block_config()
+    gt = load_pkl_images(os.path.join(REPO, "datasets", "texture160", "texture160-test.pklv4"))[:BATCH]
+    batch = {k: torch.from_numpy(np.stack(v).astype(np.float32) / 255.0).cuda()
+             for k, v in (("x", gt), ("y", bicubic_lq_images(gt, config.data.scale)))}
+    model = init_model_random(config, seed=config.seed, device="cuda")
+    sde, eps = sampler_sde(config)
+    phase("setup", t, f"direct 8x ddpm_KxSR: x {tuple(batch['x'].shape)} y {tuple(batch['y'].shape)},"
+                      f" {sum(p.numel() for p in model.parameters())} params")
+    off = texture160_direct_8x_config()
+    agree = agreement("float32 direct 8x ddpm_KxSR", config, off, model, batch, None, REL_TOL[torch.float32])
+    score = score_fn(model, sde)
+    sampler = pc_sampler(config, sde, eps, tuple(batch["x"].shape), p_steps=DIRECT8X_STEPS)
+    gen = torch.Generator(device="cuda").manual_seed(config.seed)
+    sample = run_sampler("float32 direct 8x ddpm_KxSR, fused_block+fused_tail",
+                         lambda: sampler(gen, score, batch["y"])[0], PER_FORWARD_BLOCK_PATH, DIRECT8X_STEPS,
+                         shape=tuple(batch["x"].shape))
+    return sample, agree
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1896,6 +2244,8 @@ def main() -> int:
     if t64_sites != {(name, *shape): calls for name, *shape, calls in TEXTURE64_BLOCK_SHAPES}:
         raise RuntimeError(f"texture64 block sites {dict(t64_sites)}, expected {TEXTURE64_BLOCK_SHAPES}")
     check_texture64_blocks()
+    chain = chain_sites()
+    check_chain_sites()
     act_rows = check_fused_act()
     phase("kernel", t, "every kernel agrees with its plain version at every shape; the harness's tail calls per"
                        f" forward {dict(sorted(harness_tails.items()))}")
@@ -2004,7 +2354,13 @@ def main() -> int:
         estimator_conv_rows += conv_rows_one
     main_uncond, train_uncond, agree_uncond = run_unconditional()
     main_vp = [run_vp(name) for name in ("vpsde", "subvpsde")]
-    new_paths = estimator_paths + [main_uncond, train_uncond] + main_vp
+
+    # ---- the multi-scale chains: the trained pyramid, the sequential chains, direct 8x
+    main_pyramid, agree_pyramid = run_pyramid(chain["pyramid"])
+    sequential_paths, agree_sequential = run_sequential(chain)
+    main_direct, agree_direct = run_direct_8x()
+    new_paths = estimator_paths + [main_uncond, train_uncond] + main_vp + [main_pyramid] + sequential_paths
+    new_paths.append(main_direct)
 
     bf16 = torch.bfloat16
     tail_line = per_forward_row(
@@ -2107,7 +2463,8 @@ def main() -> int:
         name = "conv3x3" if k["name"] == "conv3x3_hmajor" else k["name"]
         k["launches_other_paths"] = {p["path"]: p["launches"][name] for p in new_paths if p["launches"][name]}
     paths = [main_new, main_tail, main_ncsnpp, main_train, main_train_off, main_harness] + new_paths
-    agree += [agree_train, agree_texture64] + agree_estimators + [agree_uncond]
+    agree += [agree_train, agree_texture64] + agree_estimators + [agree_uncond, agree_pyramid] + agree_sequential
+    agree.append(agree_direct)
     print(json.dumps({"kernels": kernels, "paths": paths, "agreement": agree}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -8,7 +8,20 @@ from .celeba_sr import (
     celeba_sr_interpolation_config,
 )
 from .extra import cifar10_vp_config, texture160_unconditional_ncsnpp_config, unconditional_pkl_config
-from .srflow import df2k_config
+from .multiscale import (
+    hq160_sequential_bicubic_master_config,
+    hq160_sequential_haar_master_config,
+    texture160_direct_8x_block_config,
+    texture160_direct_8x_config,
+    texture160_sequential_bicubic_master_block_config,
+    texture160_sequential_bicubic_master_config,
+    texture160_sequential_haar_master_block_config,
+    texture160_sequential_haar_master_config,
+    texture64_haar_scale_config,
+    texture64_multiscale_master_block_config,
+    texture64_multiscale_master_config,
+)
+from .srflow import df2k_config, hq160_direct_8x_config, hq160_sequential_config
 from .texture160_kxsr_ncsnpp import get_config as texture160_kxsr_ncsnpp_config
 from .texture160_kxsr_ncsnpp_block import get_config as texture160_kxsr_ncsnpp_block_config
 from .texture160_sr import (
@@ -33,9 +46,19 @@ __all__ = [
     "celeba_sr_interpolation_config",
     "cifar10_vp_config",
     "df2k_config",
+    "hq160_direct_8x_config",
+    "hq160_sequential_bicubic_master_config",
+    "hq160_sequential_config",
+    "hq160_sequential_haar_master_config",
     "image_model_defaults",
+    "texture160_direct_8x_block_config",
+    "texture160_direct_8x_config",
     "texture160_kxsr_ncsnpp_block_config",
     "texture160_kxsr_ncsnpp_config",
+    "texture160_sequential_bicubic_master_block_config",
+    "texture160_sequential_bicubic_master_config",
+    "texture160_sequential_haar_master_block_config",
+    "texture160_sequential_haar_master_config",
     "texture160_sr_cde_config",
     "texture160_sr_cdiffe_config",
     "texture160_sr_cmde_bf16_block_config",
@@ -44,6 +67,9 @@ __all__ = [
     "texture160_sr_vscmde_config",
     "texture160_sr_vscmde_slow_config",
     "texture160_unconditional_ncsnpp_config",
+    "texture64_haar_scale_config",
+    "texture64_multiscale_master_block_config",
+    "texture64_multiscale_master_config",
     "texture64_sr_cmde_config",
     "texture64_sr_cmde_test_config",
     "texture64_sr_dv_config",

@@ -11,7 +11,11 @@ ulp):
 * `LRHR_PKLDataset`: stored LQ/GT pairs, y the LQ image as it is (or
   upsampled by nearest neighbour where the recipe sets ``upscale_lr``);
 * `unpaired_PKLDataset`: the GT images alone, a batch a bare NHWC array,
-  resized bicubic to ``data.image_size`` (the unconditional recipes).
+  resized bicubic to ``data.image_size`` (the unconditional recipes);
+* `Haar_PKLDataset`: GT images decomposed ``data.level + 1`` times by the
+  Haar transform (`ops/haar.py`), paired by ``data.map``: ``approx to
+  detail`` (x the last level's detail bands, y its approximation),
+  ``bicubic to approx`` or ``bicubic to haar`` (y the stored LQ image).
 
 The train split is shuffled every epoch and, with ``data.use_flip``, each
 image (and its LQ partner) flipped horizontally by a mask drawn from the
@@ -112,7 +116,8 @@ def iter_test_batches(config, batch_size=None) -> Iterator[Dict[str, np.ndarray]
     return PKLDataModule(config).test_iterator(batch_size)
 
 
-DATAMODULES = ("General_PKLDataset", "LRHR_PKLDataset", "unpaired_PKLDataset")
+DATAMODULES = ("General_PKLDataset", "LRHR_PKLDataset", "unpaired_PKLDataset", "Haar_PKLDataset")
+HAAR_MAPS = ("approx to detail", "bicubic to approx", "bicubic to haar")
 
 
 def make_unpaired_batch(
@@ -131,13 +136,37 @@ def make_unpaired_batch(
     return bicubic_resize_np(x, image_size) if x.shape[1] != image_size else x
 
 
-class PKLDataModule:
-    """The split iterators of `General_PKLDataset`, `LRHR_PKLDataset` and
-    `unpaired_PKLDataset` (JAX `GeneralPKLDataModule`, `LRHRPKLDataModule`,
-    `UnpairedPKLDataModule`).
+def make_haar_batch(
+    hr: List[np.ndarray], lr: Optional[List[np.ndarray]], level: int, mapping: str,
+    flips: Optional[np.ndarray] = None,
+) -> Dict[str, np.ndarray]:
+    """One `Haar_PKLDataset` batch: the GT images through ``level + 1`` Haar
+    decompositions (torch on the CPU), paired as ``mapping`` says; ``lr``
+    (the stored LQ images) only for the maps that read it."""
+    import torch
 
-    A split's files are read at its first use, so a machine that holds only
-    some splits can iterate those."""
+    from ..ops.haar import multi_level_haar_forward
+
+    if mapping not in HAAR_MAPS:
+        raise NotImplementedError(f"Mapping <<{mapping}>> is not supported")
+    x = assemble_batch(hr, flips)
+    approx, detail = (t.numpy() for t in multi_level_haar_forward(torch.from_numpy(x), int(level) + 1))
+    if mapping == "approx to detail":
+        return {"x": detail, "y": approx}
+    y = assemble_batch(lr, flips)
+    if mapping == "bicubic to approx":
+        return {"x": approx, "y": y}
+    return {"x": np.concatenate([approx, detail], axis=-1), "y": y}
+
+
+class PKLDataModule:
+    """The split iterators of `General_PKLDataset`, `LRHR_PKLDataset`,
+    `unpaired_PKLDataset` and `Haar_PKLDataset` (JAX `GeneralPKLDataModule`,
+    `LRHRPKLDataModule`, `UnpairedPKLDataModule`, `HaarPKLDataModule`).
+
+    A split's files are read at its first use, and the LQ file only where
+    the batches use it, so a machine that holds only some files can iterate
+    what they make."""
 
     def __init__(self, config):
         self.config = config
@@ -146,13 +175,16 @@ class PKLDataModule:
             raise NotImplementedError(f"datamodule {config.data.datamodule!r} is not ported")
         self.lrhr = config.data.datamodule == "LRHR_PKLDataset"
         self.unpaired = config.data.datamodule == "unpaired_PKLDataset"
+        self.haar = config.data.datamodule == "Haar_PKLDataset"
+        # which datamodules read the stored LQ images
+        self.reads_lq = self.lrhr or (self.haar and config.data.map != "approx to detail")
         self._images: Dict[str, Dict[str, List[np.ndarray]]] = {}
 
     def images(self, phase: str) -> Dict[str, List[np.ndarray]]:
         if phase not in self._images:
             paths = pkl_paths(self.config, phase)
             split = {"hr": load_pkl_images(paths["GT"])}
-            if self.lrhr:
+            if self.reads_lq:
                 split["lr"] = load_pkl_images(paths["LQ"])
                 if len(split["lr"]) != len(split["hr"]):
                     raise ValueError(f"{len(split['lr'])} LQ images for {len(split['hr'])} GT images")
@@ -179,6 +211,16 @@ class PKLDataModule:
         def flips_of(idx, rng):
             return (rng.random(len(idx)) < 0.5).astype(np.uint8) if use_flip else None
 
+        if self.haar:
+            level, mapping, lr = c.data.level, c.data.map, images.get("lr")
+
+            def make_batch(idx, rng):
+                return make_haar_batch(
+                    [hr[i] for i in idx], None if lr is None else [lr[i] for i in idx], level, mapping,
+                    flips_of(idx, rng),
+                )
+
+            return make_batch
         if self.unpaired:
             image_size = c.data.image_size
             return lambda idx, rng: make_unpaired_batch([hr[i] for i in idx], image_size, use_flip, rng)

@@ -7,15 +7,19 @@
         --config texture64_sr_cmde_test [--checkpoint_path FILE_OR_DIR]
     python -m conditional_score_diffusion_tpu_torch.main \\
         --mode evaluation_pipeline --config texture64_sr_cmde_test
+    python -m conditional_score_diffusion_tpu_torch.main \\
+        --mode multi_scale_test --config texture64_multiscale_master
 
 ``--config`` is a recipe of `configs` by name (``texture160_sr_cmde_conv3x3``
 for `configs.texture160_sr_cmde_conv3x3_config`) or the path of a Python
 file whose ``get_config()`` returns a `configs.Config`; for
 ``evaluation_pipeline`` it may also be a master config (a `Config` of leaf
-recipes, JAX `run_lib.py:evaluation_pipeline`).  ``--device`` (not a JAX
-flag) is ``cuda`` unless the caller asks for the CPU.  ``train``, ``test``
-and ``evaluation_pipeline`` are ported; the other two modes raise, naming
-their ROADMAP.md items.
+recipes, JAX `run_lib.py:evaluation_pipeline`), and for
+``multi_scale_test`` it is one (per-scale recipes and a
+``coordinate_space``, `configs/multiscale.py`; the chain's PNGs and
+``metrics.json`` go under ``{log_path}/multi_scale``).  ``--device`` (not
+a JAX flag) is ``cuda`` unless the caller asks for the CPU.
+``compute_dataset_statistics`` raises, naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -28,7 +32,6 @@ from . import configs
 
 MODES = ["train", "test", "multi_scale_test", "compute_dataset_statistics", "evaluation_pipeline"]
 NOT_PORTED = {
-    "multi_scale_test": "the Haar multi-scale chain (ROADMAP.md section 1, item 6)",
     "compute_dataset_statistics": "data/statistics.py (ROADMAP.md section 1, item 11)",
 }
 
@@ -59,8 +62,11 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
 
     config = load_config(args.config)
-    if args.data_path is not None and "base_dir" in config.data:
-        config.data.base_dir = args.data_path
+    if args.data_path is not None:
+        # a leaf recipe, or each recipe of a master config
+        for recipe in [config] if "data" in config else vars(config).values():
+            if hasattr(recipe, "data") and "base_dir" in recipe.data:
+                recipe.data.base_dir = args.data_path
     if args.mode in NOT_PORTED:
         raise NotImplementedError(f"--mode {args.mode} is not ported: it needs {NOT_PORTED[args.mode]}")
     if args.mode == "train":
@@ -71,6 +77,10 @@ def main(argv=None) -> None:
         from .eval.harness import run_test
 
         run_test(config, args.log_path, args.checkpoint_path, device=args.device)
+    elif args.mode == "multi_scale_test":
+        from .eval.multiscale import run_multi_scale_test
+
+        run_multi_scale_test(config, args.log_path, device=args.device)
     else:
         evaluation_pipeline(config, device=args.device)
 

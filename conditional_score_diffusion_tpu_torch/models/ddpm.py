@@ -1,5 +1,6 @@
 """DDPM U-Net and its paired (x, y) variants in PyTorch, NHWC (JAX
-`models/ddpm.py`: `DDPM`, `DDPMPaired`, `DDPMPairedSR3`).
+`models/ddpm.py`: `DDPM`, `DDPMPaired`, `DDPMPairedSR3`, `DDPM2xSR` and its
+alias `DDPMSR`, `DDPMKxSR`, `DDPMMultiSpeedHaar`).
 
 Submodules carry the JAX module names (``conv_in``, ``down_0_0``,
 ``down_attn_3_0``, ``mid_block0``, ``up_5_2``, ``norm_out``, ...), so a
@@ -14,6 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.haar import haar_backward, haar_forward
 from . import register_model
 from .layers import (
     AttnBlock,
@@ -210,3 +212,84 @@ class DDPMPairedSR3(DDPMPaired):
 
     def forward(self, inputs, cond):
         return self.unet(torch.cat([inputs["x"], inputs["y"]], dim=-1), cond)
+
+
+@register_model(name="ddpm_2xSR")
+class DDPM2xSR(DDPMPaired):
+    """2x super-resolution: x space-to-depth by 2 beside the half-size y;
+    the x score back to x's size."""
+
+    @classmethod
+    def from_config(cls, config):
+        d = config.data
+        y_channels = d.shape_y[0] if "shape_y" in d else d.shape_x[0]
+        return cls(DDPM.from_config(config, in_channels=4 * d.shape_x[0] + y_channels))
+
+    def forward(self, inputs, cond):
+        xs = squeeze2x(inputs["x"])
+        xc = xs.shape[-1]
+        out = self.unet(torch.cat([xs, inputs["y"]], dim=-1), cond)
+        return {"x": squeeze2x(out[..., :xc], reverse=True), "y": out[..., xc:]}
+
+
+@register_model(name="ddpm_SR")
+class DDPMSR(DDPM2xSR):
+    """The name the legacy celebA bicubic multi-scale recipes give
+    `ddpm_2xSR`."""
+
+
+@register_model(name="ddpm_KxSR")
+class DDPMKxSR(DDPMPaired):
+    """K x super-resolution: y (``target_resolution / scale``) resized
+    bilinearly up to x's size as input, the y score resized back down, both
+    antialiased as `jax.image.resize` is (`models.ncsnpp.resize_bilinear`)."""
+
+    def __init__(self, unet: DDPM, target_resolution: int, scale: int):
+        super().__init__(unet)
+        self.target_resolution, self.scale = target_resolution, scale
+
+    @classmethod
+    def from_config(cls, config):
+        d = config.data
+        unet = DDPM.from_config(config, in_channels=d.shape_x[0] + d.shape_y[0])
+        return cls(unet, d.target_resolution, d.scale)
+
+    def forward(self, inputs, cond):
+        from .ncsnpp import resize_bilinear
+
+        x, y = inputs["x"], inputs["y"]
+        gt = self.target_resolution
+        xc = x.shape[-1]
+        out = self.unet(torch.cat([x, resize_bilinear(y, gt)], dim=-1), cond)
+        return {"x": out[..., :xc], "y": resize_bilinear(out[..., xc:], gt // self.scale)}
+
+
+@register_model(name="ddpm_multi_speed_haar")
+class DDPMMultiSpeedHaar(nn.Module):
+    """A DDPM on Haar coefficients: a dict ``{'d1', ..., 'dK', 'aK'}`` of
+    detail and approximation bands goes back to the image, through the
+    U-Net, and out as the same dict.  The JAX package's working form of a
+    model that its reference left unfinished; this copies the JAX one."""
+
+    def __init__(self, unet: DDPM, max_haar_depth: int = 1):
+        super().__init__()
+        self.unet, self.max_haar_depth = unet, max_haar_depth
+
+    @classmethod
+    def from_config(cls, config):
+        return cls(DDPM.from_config(config), config.data.get("max_haar_depth", 1))
+
+    def forward(self, haar_x, cond):
+        depth = max(int(k[1:]) for k in haar_x if k.startswith("a"))
+        a = haar_x[f"a{depth}"]
+        for i in range(depth, 0, -1):
+            a = haar_backward(torch.cat([a, haar_x[f"d{i}"]], dim=-1))
+        x = self.unet(a, cond)
+        C = x.shape[-1]
+        result = {}
+        for i in range(1, depth + 1):
+            z = haar_forward(x)
+            x = z[..., :C]
+            result[f"d{i}"] = z[..., C:]
+        result[f"a{depth}"] = x
+        return result

@@ -19,6 +19,7 @@ import torch
 import chip_smoke
 from chip_smoke import block_call as run
 from chip_smoke import block_inputs
+from conditional_score_diffusion_tpu_torch.models.layers import legacy_num_groups
 from conditional_score_diffusion_tpu_torch.ops import conv3x3, fused_block
 
 # The whole-block sites, 32 groups: (B, H, Ca, Cb, Cout); Cb = 0 is the
@@ -71,6 +72,22 @@ def test_kernel_matches_plain(device, b, h, ca, cb, cout, dtype, with_temb, skip
     want = run(x, skip, kw, plain=True)
     assert got.shape == (b, h, h, cout)
     _check(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_temb,skip_rescale", [(True, False), (False, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,h,ca,cb,cout", chip_smoke.CHAIN_BLOCK_SHAPES)
+def test_kernel_matches_plain_at_the_chain_sites(device, name, h, ca, cb, cout, dtype, with_temb, skip_rescale):
+    """The multi-scale chains' block sites (B=8) with the DDPM's groups: 16
+    groups of 3 (C = 48) and of 9 (48 + 96, one straddling the concat), 32
+    groups of 3 to 12."""
+    x, skip, kw = block_inputs(h, ca, cb, cout, dtype, seed=h * (ca + cb) + 3, with_temb=with_temb)
+    kw.update(num_groups0=legacy_num_groups(ca + cb), num_groups1=legacy_num_groups(cout), skip_rescale=skip_rescale)
+    assert (skip is None) == (name == "resblock_fused")
+    got = run(x, skip, kw)
+    assert got.shape == (chip_smoke.BATCH, h, h, cout)
+    _check(got, run(x, skip, kw, plain=True), dtype)
 
 
 def _case_inputs(b, h, ca, cb, cout, g0, g1, dtype, with_temb=True):

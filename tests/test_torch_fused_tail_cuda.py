@@ -13,6 +13,8 @@ another order than cuDNN's; TF32 is off on the plain side); bfloat16 2e-2
 import pytest
 import torch
 
+import chip_smoke
+from conditional_score_diffusion_tpu_torch.models.layers import legacy_num_groups
 from conditional_score_diffusion_tpu_torch.ops import conv3x3, fused_tail
 
 # The gated tails, 32 groups: (B, H, C): the flagship sampler's at B=8, the
@@ -63,6 +65,20 @@ def test_kernel_matches_plain(device, b, h, c, dtype, with_temb):
     torch.cuda.synchronize()
     assert fused_tail.gn_silu_conv3x3.launches == launches + 1
     _check(got, fused_tail.gn_silu_conv3x3_plain(x, w, gamma, beta, 32, bias=bias, temb=temb), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_temb", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,c", chip_smoke.CHAIN_TAIL_SHAPES)
+def test_kernel_matches_plain_at_the_chain_sites(device, h, c, dtype, with_temb):
+    """The multi-scale chains' tails (B=8) with the DDPM's groups: 16 groups
+    of 3 at C = 48, 32 groups of 3 and of 4 at C = 96 and 128."""
+    g = legacy_num_groups(c)
+    x, w, gamma, beta, bias, temb = _inputs(h, c, dtype, device, seed=h * c + 3)
+    temb = temb if with_temb else None
+    _check(fused_tail.gn_silu_conv3x3(x, w, gamma, beta, g, bias=bias, temb=temb),
+           fused_tail.gn_silu_conv3x3_plain(x, w, gamma, beta, g, bias=bias, temb=temb), dtype)
 
 
 @pytest.mark.cuda

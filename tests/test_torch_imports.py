@@ -67,5 +67,7 @@ def test_port_imports_without_jax():
         "ops.fused_act", "eval.metrics", "eval.harness", "eval.pipeline", "configs.texture64_sr_cmde",
         "configs.texture64_sr_cmde_test", "sde.vp", "configs.extra", "configs.texture160_sr",
         "configs.texture64_sr_dv", "sampling.pc", "sampling.predictors", "sampling.correctors",
+        "ops.haar", "eval.multiscale", "configs.multiscale", "training.callbacks", "models.ddpm",
+        "data.pkl_datasets",
     ):
         assert f"conditional_score_diffusion_tpu_torch.{name}" in names, name

@@ -62,8 +62,8 @@ def test_df2k_recipe_matches_jax():
             assert list(value) == list(want), path
         else:
             assert value == want and type(value) is type(want), path
-    with pytest.raises(NotImplementedError):
-        df2k_config("80to160")
+    with pytest.raises(KeyError):
+        df2k_config("20to40")
     texture = dict(_leaves(texture160_kxsr_ncsnpp_config()))
     differ = {p for p in leaves if texture[p] != leaves[p]}
     assert differ == {"data.dataset", "eval.batch_size"}  # base_dir is "datasets" in both

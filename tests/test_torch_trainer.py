@@ -102,8 +102,8 @@ def test_cli_trains_a_toy_recipe(tmp_path):
     cli.main(["--mode", "train", "--config", str(recipe), "--log_path", str(log_path), "--device", "cpu"])
     assert CheckpointManager(str(log_path / "checkpoints")).latest_step() == 2
     assert [s for t, _, s in read_scalars(str(log_path / "scalars.jsonl")) if t == "train_loss"] == [1, 2]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cli.main(["--mode", "multi_scale_test", "--config", str(recipe)])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        cli.main(["--mode", "compute_dataset_statistics", "--config", str(recipe)])
     with pytest.raises(KeyError, match="texture160_sr_cmde_conv3x3"):
         cli.load_config("no_such_recipe")
     assert cli.load_config("texture160_sr_cmde_conv3x3").model.conv_dispatch == "conv3x3_kernel"
