@@ -67,21 +67,21 @@ Phases, each printing its own line with its seconds:
    8x SR degradation), the full-width ddpm_paired with seeded N(0, 0.02)
    weights, bfloat16 compute through `get_score_fn(compute_dtype=...)` ->
    `get_conditional_score_fn` -> `get_pc_conditional_sampler` (as the JAX
-   bench composes it), fused_block and fused_tail on, 200 of the recipe's
+   bench composes it), fused_block and fused_tail on, 100 of the recipe's
    1000 steps (its time per evaluation does not depend on the count).  Each
    kernel's launch counter, set to 0 just before, must read exactly its
-   count per forward x 2 x 200 just after.
+   count per forward x 2 x 100 just after.
 6. main (the float32 tail path): the same batch and weights, float32,
-   fused_tail only, through `get_conditional_sampling_fn`, 200 steps; the
-   tail's counter must read 17 x 2 x 200.
+   fused_tail only, through `get_conditional_sampling_fn`, 50 steps; the
+   tail's counter must read 17 x 2 x 50.
 7. main (the NCSN++ path): the DF2K direct 4x recipe on texture160
    (`texture160_kxsr_ncsnpp`): the first 8 test pairs (the recipe's eval
    batch of 32 cut to 8), x 160x160 and y the committed 40x40 LQ images;
    the full-width ncsnpp_KxSR (nf=64, ch_mult (1,1,2,2,4,4), 32.1 M
    parameters) with seeded N(0, 0.02) weights; the multi-speed VE SDE with
    sigma_y as the VS-CMDE schedule leaves it (sigma_y,max 138.6); float32
-   through `get_conditional_sampling_fn`, 200 steps; the FIR counters must
-   read 15 x 2 x 200 each.  Then one backward through the same model at
+   through `get_conditional_sampling_fn`, 100 steps; the FIR counters must
+   read 15 x 2 x 100 each.  Then one backward through the same model at
    B=1 (`ncsnpp_backward`): finite gradients equal by norm to those with
    every FIR call on its plain version, and the FIR kernels launched only
    on the input pyramid, none in the backward.
@@ -165,8 +165,37 @@ Phases, each printing its own line with its seconds:
    random weights, the first 8 texture160 test images, y their 20px
    bicubic LQ: kernels on against off (`agreement`), then 5 steps with
    fused_block and fused_tail, the flagship's calls per forward.
-16. result: a JSON line of the kernels (with each one's launches on the
-   paths of phases 10-15), the nvidia-smi line, and last
+16. main (the GaussianBubbles toy through the CLI, new): ``main.py --mode
+   train --config toy_gaussian_bubbles`` in-process (the FCN, 10,000 steps
+   of B=256, the ``2D`` callback every 2,000 steps at its full 500 steps),
+   ms per step over the sustained windows; then 4,000 PC samples (500
+   steps) from the last checkpoint's EMA, scored as
+   `scripts/head_to_head.py` scores them (`eval/toy.py`): mode mass max
+   deviation and energy distance in `TOY_BAND` (set from the JAX run's
+   spread over three seeds); no callback failure logged; no kernel runs.
+17. main (the paired callback at full length, new): a `Trainer` on
+   `texture64_sr_cmde` with the committed EMA, float32 with the fused tail
+   (the harness's knobs), its ``paired`` callback fired once: 1000 steps
+   on the first 8 test images; the tail counted exactly (its calls per
+   forward x 2 x 1000); the PSNR of the grid's sample column against its
+   ground-truth column in `PAIRED_BAND` (set from the JAX callback on the
+   same checkpoint and images over three keys).
+18. main (the NCSN++ DF2K direct 4x trainer, new): `texture160_kxsr_ncsnpp`
+   at full width (nf 64, ch_mult (1,1,2,2,4,4), attention at 20/10/5),
+   B=16, float32, the texture160 train split with its 4x LQ file written
+   to a temp dir: `Trainer.fit(20)` with ``CSDT_PROFILE_DIR`` set (the
+   trace of steps 3-5 written there); finite losses and gradient norms,
+   the EMA moved, the Fourier W unchanged, a checkpoint restored exactly,
+   the FIR downsample kernel counted exactly on the raw input's pyramid
+   (5 a step: no gradient flows there; every other FIR call takes the
+   plain version); ms per step, the window's device time by kernel, and
+   the plain FIR's share of it (`profile_train_step.py`:
+   `recording_upfirdn`, `plain_fir_ms`).  Then its ``KxSR`` callback once
+   at ``visualization_p_steps = 20``: FIR kernels 6-7 counted exactly, the
+   grid against the same callback with the plain FIR at 1e-4.
+   Every phase's trainer must have recorded no callback failure.
+19. result: a JSON line of the kernels (with each one's launches on the
+   paths of phases 10-18), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -211,7 +240,11 @@ from conditional_score_diffusion_tpu_torch.configs import (  # noqa: E402
     texture160_unconditional_ncsnpp_config,
     texture64_multiscale_master_block_config,
     texture64_multiscale_master_config,
+    texture64_sr_cmde_config,
     texture64_sr_cmde_test_config,
+)
+from conditional_score_diffusion_tpu_torch.configs.texture160_kxsr_ncsnpp import (  # noqa: E402
+    train_config as texture160_kxsr_ncsnpp_train_config,
 )
 from conditional_score_diffusion_tpu_torch.configs.multiscale import (  # noqa: E402
     texture160_sequential_master_config,
@@ -225,6 +258,8 @@ from conditional_score_diffusion_tpu_torch.data.pkl_datasets import (  # noqa: E
 )
 from conditional_score_diffusion_tpu_torch.eval import multiscale  # noqa: E402
 from conditional_score_diffusion_tpu_torch.eval.harness import load_model, output_dir, run_test  # noqa: E402
+from conditional_score_diffusion_tpu_torch.eval.metrics import psnr as psnr_fn  # noqa: E402
+from conditional_score_diffusion_tpu_torch.eval.toy import sample_toy  # noqa: E402
 from conditional_score_diffusion_tpu_torch.eval.pipeline import load_images, numbered, run_evaluation_pipeline  # noqa: E402
 from conditional_score_diffusion_tpu_torch.models import create_model, init_model_random, layers  # noqa: E402
 from conditional_score_diffusion_tpu_torch.models.layers import legacy_num_groups  # noqa: E402
@@ -237,6 +272,12 @@ from conditional_score_diffusion_tpu_torch.ops import conv3x3, fir, fused_act, f
 from conditional_score_diffusion_tpu_torch.ops.fused_tail import conv3x3_nhwc  # noqa: E402
 from conditional_score_diffusion_tpu_torch.ops.upfirdn import setup_kernel  # noqa: E402
 from conditional_score_diffusion_tpu_torch.profile_sampler import plain_versions, sampler_sde  # noqa: E402
+from conditional_score_diffusion_tpu_torch.profile_train_step import (  # noqa: E402
+    kernel_ms,
+    kernel_table,
+    plain_fir_ms,
+    recording_upfirdn,
+)
 from conditional_score_diffusion_tpu_torch.losses import build_loss_fn  # noqa: E402
 from conditional_score_diffusion_tpu_torch.sampling import (  # noqa: E402
     get_conditional_sampling_fn,
@@ -246,7 +287,12 @@ from conditional_score_diffusion_tpu_torch.sampling import (  # noqa: E402
 )
 from conditional_score_diffusion_tpu_torch.sde import VPSDE, batch_mul, build_sde, is_multispeed  # noqa: E402
 from conditional_score_diffusion_tpu_torch.sde.factory import is_conditional_config  # noqa: E402
-from conditional_score_diffusion_tpu_torch.training.checkpoint import CheckpointManager, save_ema  # noqa: E402
+from conditional_score_diffusion_tpu_torch.training import callbacks  # noqa: E402
+from conditional_score_diffusion_tpu_torch.training.checkpoint import (  # noqa: E402
+    CheckpointManager,
+    load_eval_weights,
+    save_ema,
+)
 from conditional_score_diffusion_tpu_torch.training.schedules import is_decreasing_variance, sigma_y_at_step  # noqa: E402
 from conditional_score_diffusion_tpu_torch.training.state import create_train_state  # noqa: E402
 from conditional_score_diffusion_tpu_torch.training.steps import make_train_step  # noqa: E402
@@ -336,8 +382,8 @@ PER_FORWARD_NCSNPP_PATH = {"fir_upsample2": 15, "fir_downsample2": 15}
 # raw input's pyramid (160 to 10, 6 channels) needs none, so only its 5
 # downsamples launch a kernel; every other call takes its plain version.
 NCSNPP_GRAD_FORWARD = {"fir_upsample2": 0, "fir_downsample2": 5}
-STEPS = 200  # the bfloat16 block path and the NCSN++ path, cut from their 1000 to keep the run short
-TAIL_PATH_STEPS = 200  # the float32 tail path, cut from 1000 likewise
+STEPS = 100  # the bfloat16 block path and the NCSN++ path, cut from their 1000 to keep the run short
+TAIL_PATH_STEPS = 50  # the float32 tail path, cut from 1000 likewise
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Kernels on against off, bfloat16 compute (see `agreement`).
 BF16_AGREE_TOL = 2e-2
@@ -481,6 +527,30 @@ CHAIN_BLOCK_SHAPES = [
     ("resblock_fused_split", 10, 128, 128, 128),
     ("resblock_fused_split", 10, 256, 128, 128),  # 384 in: 12-channel groups
 ]
+
+# The GaussianBubbles toy trained by the CLI (phase 16): its 4,000-sample
+# metrics (`eval/toy.py`, `scripts/head_to_head.py:sample_metrics`) must lie
+# in the band set from the JAX run's spread over three seeds
+# (`tests/_torch_port_toy_band.py`, seeds 0-2, 10,000 steps each, on a CPU):
+# the range widened by half its width on each side, never narrower than
+# ground truth against itself (0.0125 / 0.00219), nor below 0.
+TOY_JAX = {"mode_mass_maxdev": [0.006249999999999978, 0.006500000000000006, 0.024249999999999994],
+           "energy_distance_vs_gt": [0.001677393913269043, 0.00353848934173584, 0.00428318977355957]}
+TOY_BAND = {"mode_mass_maxdev": (0.0, 0.03325), "energy_distance_vs_gt": (0.0003744959831237793, 0.005586087703704834)}
+# The full-length paired callback on the texture64 EMA (phase 17): the PSNR
+# of its 8 samples against their ground truth, in the band set from the
+# JAX callback on the same checkpoint and images over three keys
+# (`tests/_torch_port_paired_band.py`, steps 1-3, on a CPU): the range
+# widened by half its width on each side, at least the harness's +-0.5 dB
+# around the mean (38.46665).
+PAIRED_IMAGES = 8
+PAIRED_JAX = [38.542591932595236, 38.441330877546804, 38.41601926013445]
+PAIRED_BAND = (37.966647356758834, 38.966647356758834)
+# The NCSN++ DF2K direct 4x trainer (phase 18).
+NCSNPP_TRAIN_STEPS = 20
+PROFILE_STEPS = 3  # CSDT_PROFILE_STEPS: the trace covers steps 3-5 (10 steps wrote 229 MiB)
+KXSR_VIZ_STEPS = 20  # the KxSR callback's training.visualization_p_steps
+KXSR_GRID_TOL = 1e-4  # the callback's grid, FIR kernels against the plain FIR
 
 WRAPPERS = {
     "gn_silu_conv3x3": fused_tail.gn_silu_conv3x3,
@@ -1211,7 +1281,8 @@ def run_trainer(label, config, steps, expected, evals, restore=True):
             window_steps=int(last["window_steps"][0]),
         )
         ok = all(math.isfinite(v) for v in losses + [v for _, v in history["eval_loss"]])
-        ok = ok and len(history["eval_loss"]) == evals
+        ok = ok and len(history["eval_loss"]) == evals and not trainer.callback_failures
+        result["callback_failures"] = dict(trainer.callback_failures)
         if is_decreasing_variance(config):  # VS-CMDE logs sigma_y as its schedule gives it, at every log
             logged = sorted({step for _, step in sigma_y})
             schedule = {s: sigma_y_at_step(config, s) for s in logged}
@@ -2187,6 +2258,266 @@ def run_direct_8x():
     return sample, agree
 
 
+
+# ---- training as the CLI runs it: callbacks, the toy, the NCSN++ trainer --------
+
+
+class RecordingWriter:
+    """The trainer's writer, keeping the last image each tag got (CHW)."""
+
+    def __init__(self, writer):
+        self.writer, self.images = writer, {}
+
+    def add_image(self, tag, img, step):
+        self.images[tag] = np.asarray(img)
+        self.writer.add_image(tag, img, step)
+
+    def __getattr__(self, name):
+        return getattr(self.writer, name)
+
+
+def callback_failures_logged(log_path):
+    """The ``callback_failures/*`` scalars and ``callback_errors.jsonl``
+    lines a run under ``log_path`` wrote (each failure writes one of each)."""
+    failures = [(t, v, s) for t, v, s in read_scalars(os.path.join(log_path, "scalars.jsonl"))
+                if t.startswith("callback_failures/")]
+    errors = os.path.join(log_path, "callback_errors.jsonl")
+    if os.path.exists(errors):
+        with open(errors) as f:
+            failures += [json.loads(line) for line in f]
+    return failures
+
+
+def fire_callback(label, trainer, callback, step, expected):
+    """``callback`` once through the trainer (a failure is counted there),
+    every kernel counter at 0 just before and read just after; the
+    launches must be ``expected`` and no callback may have failed."""
+    writer = trainer.writer
+    trainer.writer = recording = RecordingWriter(writer)
+    torch.cuda.synchronize()
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    try:
+        trainer._run_callback(callback, step)
+        torch.cuda.synchronize()
+    finally:
+        trainer.writer = writer
+    wall = time.perf_counter() - t
+    launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+    result = dict(path=label, wall_s=wall, launches=launches, expected_launches=expected,
+                  callback_failures=dict(trainer.callback_failures))
+    if trainer.callback_failures:
+        raise RuntimeError(f"{label}: callback failures {trainer.callback_failures}")
+    if launches != expected:
+        raise RuntimeError(f"{label}: launches {launches}, expected {expected}")
+    return result, recording.images
+
+
+def run_toy():
+    """The GaussianBubbles toy as the CLI trains it (``main.py --mode train
+    --config toy_gaussian_bubbles`` in-process: 10,000 steps of B=256, the
+    ``2D`` callback every 2,000 steps at its full 500 steps), then 4,000 PC
+    samples from the last checkpoint's EMA, their metrics in `TOY_BAND`."""
+    t = time.perf_counter()
+    config = cli.load_config("toy_gaussian_bubbles")
+    with tempfile.TemporaryDirectory() as log_path:
+        for fn in WRAPPERS.values():
+            fn.launches = 0
+        cli.main(["--mode", "train", "--config", "toy_gaussian_bubbles", "--log_path", log_path])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+        scalars = read_scalars(os.path.join(log_path, "scalars.jsonl"))
+        failures = callback_failures_logged(log_path)
+        viz = {int(f[:-4]): np.load(os.path.join(log_path, "samples_2d", f))
+               for f in os.listdir(os.path.join(log_path, "samples_2d"))}
+        step, weights = load_eval_weights(os.path.join(log_path, "checkpoints"))
+    losses = [v for tag, v, _ in scalars if tag == "train_loss"]
+    windows = [(s, v) for tag, v, s in scalars if tag == "ms_per_step"]
+    model = create_model(config, "cuda")
+    model.load_state_dict(weights)
+    ts = time.perf_counter()
+    samples, metrics = sample_toy(config, model, seed=config.seed)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - ts
+    inside = {k: TOY_BAND[k][0] <= metrics[k] <= TOY_BAND[k][1] for k in TOY_BAND}
+    ms = float(np.median([v for s, v in windows if s > config.training.log_freq]))
+    result = dict(path="float32 GaussianBubbles FCN toy (--mode train)", steps=step, wall_s=wall,
+                  ms_per_step_median=ms, ms_per_step_windows=windows, train_loss=losses, sample_s=sample_s,
+                  metrics=metrics, jax=TOY_JAX, band=TOY_BAND, launches=launches,
+                  callback_failures=failures, viz_steps=sorted(viz))
+    ok = (step == config.training.n_iters and all(inside.values()) and not failures
+          and sorted(viz) == list(range(2000, 10001, 2000))
+          and all(v.shape == (512, 2) and np.isfinite(v).all() for v in viz.values())
+          and np.isfinite(samples).all() and np.mean(losses[-10:]) < losses[0] * 0.7
+          and launches == {name: 0 for name in WRAPPERS})
+    phase("main", t,
+          f"{result['path']}: {step} steps {wall:.3f} s wall, {ms:.4f} ms/step (median of the sustained windows"
+          f" of {config.training.log_freq} steps), train_loss {losses[0]:.5f} -> {losses[-1]:.5f}; 2D callback at"
+          f" {sorted(viz)}; 4,000 samples of 500 steps in {sample_s:.3f} s: mode_mass_maxdev"
+          f" {metrics['mode_mass_maxdev']:.5f} (band {TOY_BAND['mode_mass_maxdev']}), energy_distance_vs_gt"
+          f" {metrics['energy_distance_vs_gt']:.5f} (band {TOY_BAND['energy_distance_vs_gt']}), mode_mass"
+          f" {metrics['mode_mass']}; callback failures {failures}; launches {launches} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("toy: metrics outside the band from the JAX seeds' spread, a callback failed, or"
+                           " the run is not what the recipe asks")
+    return result
+
+
+def run_paired_callback(per_forward_tail):
+    """The ``paired`` callback of the texture64 recipe at full length (1000
+    steps) once, from the committed EMA, on the first 8 images of the test
+    split, with the harness's kernel knobs (float32, ``fused_tail``): the
+    tail counted exactly, the sample column's PSNR against the ground-truth
+    column in `PAIRED_BAND`."""
+    config = texture64_sr_cmde_config()
+    config.data.base_dir = os.path.join(REPO, "datasets")
+    config.eval.loss_split = "test"  # the val split is not sent to the card
+    config.model.fused_tail = True
+    with tempfile.TemporaryDirectory() as log_path:
+        trainer = Trainer(config, log_path)
+        step, ema = load_eval_weights(texture64_sr_cmde_test_config().model.checkpoint_path)
+        trainer.state.model.load_state_dict(ema)
+        with torch.no_grad():
+            for name, shadow in trainer.state.ema.params.items():
+                shadow.copy_(ema[name])
+        callback = callbacks.get_callbacks(config)[-1]
+        steps = callbacks._viz_p_steps(config)
+        expected = {name: 0 for name in WRAPPERS}
+        expected["gn_silu_conv3x3"] = per_forward_tail * 2 * steps
+        result, images = fire_callback("float32 paired callback, texture64 EMA", trainer, callback,
+                                       config.training.visualization_freq, expected)
+        files = os.listdir(os.path.join(log_path, "images", "paired_y_sample_gt"))
+    size = config.data.image_size
+    grid = np.transpose(images["paired_y_sample_gt"], (1, 2, 0))
+    rows = [grid[r * size : (r + 1) * size] for r in range(grid.shape[0] // size)]
+    sample = torch.from_numpy(np.stack([r[:, size : 2 * size] for r in rows]))
+    gt = torch.from_numpy(np.stack([r[:, 2 * size :] for r in rows]))
+    psnr = float(psnr_fn(sample, gt).mean())
+    ok = len(rows) == PAIRED_IMAGES and PAIRED_BAND[0] <= psnr <= PAIRED_BAND[1] and files == [f"{config.training.visualization_freq}.png"]
+    result.update(steps=steps, images=len(rows), psnr=psnr, band=PAIRED_BAND, jax=PAIRED_JAX, ema_step=step,
+                  ms_per_score_eval=result["wall_s"] / (2 * steps) * 1e3)
+    print(f"[main] {result['wall_s']:.3f} s {result['path']} (step {step}): {steps} steps, {len(rows)} images,"
+          f" {result['ms_per_score_eval']:.3f} ms per score evaluation; psnr {psnr:.5f} (JAX seeds 1-3"
+          f" {PAIRED_JAX}, band {PAIRED_BAND}); grid {grid.shape} -> {files}; launches {result['launches']}"
+          f" {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"paired callback: psnr {psnr} outside {PAIRED_BAND}, or the grid is not what it should be")
+    return result
+
+
+def run_ncsnpp_trainer(per_forward_fir):
+    """The DF2K direct 4x NCSN++ trainer at full width (B=16, float32, the
+    texture160 train split with its LQ file written to a temp dir):
+    `Trainer.fit(20)` with the profiler window on (steps 3-5), then a
+    checkpoint restored exactly, the device split of the window with the
+    plain FIR's share, and the ``KxSR`` callback once at 20 steps, its FIR
+    launches counted and its grid held against the plain FIR's."""
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        config = texture160_kxsr_ncsnpp_train_config(os.path.join(tmp, "data"), os.path.join(REPO, "datasets"))
+        config.training.log_freq = 1
+        config.training.visualization_freq = 10**9  # fired once below, at its own step count
+        log_path, profile_dir = os.path.join(tmp, "logs"), os.path.join(tmp, "profile")
+        trainer = Trainer(config, log_path)
+        w0 = trainer.model.unet.fourier.W.clone()
+        ema0 = {n: p.clone() for n, p in trainer.state.ema.params.items()}
+        os.environ["CSDT_PROFILE_DIR"], os.environ["CSDT_PROFILE_STEPS"] = profile_dir, str(PROFILE_STEPS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in WRAPPERS.values():
+            fn.launches = 0
+        ts = time.perf_counter()
+        try:
+            trainer.fit(max_steps=NCSNPP_TRAIN_STEPS)
+        finally:
+            del os.environ["CSDT_PROFILE_DIR"], os.environ["CSDT_PROFILE_STEPS"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - ts
+        launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        expected = {name: 0 for name in WRAPPERS}
+        expected.update({k: v * NCSNPP_TRAIN_STEPS for k, v in NCSNPP_GRAD_FORWARD.items()})
+        scalars = read_scalars(os.path.join(log_path, "scalars.jsonl"))
+        traces = [f for f in os.listdir(profile_dir) if f.endswith(".json")]
+        trace_mb = sum(os.path.getsize(os.path.join(profile_dir, f)) for f in traces) / 2**20
+        first_clean = 2 + PROFILE_STEPS + 2  # the first 1-step window after the trace was written
+        ms = [v for tag, v, s in scalars if tag == "ms_per_step" and s >= first_clean]
+        losses = [v for tag, v, _ in scalars if tag == "train_loss"]
+        norms = [v for tag, v, _ in scalars if tag == "grad_norm"]
+        ema_moved = sum(int(not torch.equal(ema0[n], p)) for n, p in trainer.state.ema.params.items())
+        w_same = torch.equal(trainer.model.unet.fourier.W, w0)
+        again = Trainer(config, os.path.join(tmp, "restored"), checkpoint_path=trainer.ckpt.directory)
+        a, b = trainer.state, again.state
+        restored = (a.step == b.step == NCSNPP_TRAIN_STEPS and a.ema.num_updates == b.ema.num_updates
+                    and all(torch.equal(p, q) for p, q in zip(a.model.parameters(), b.model.parameters()))
+                    and all(torch.equal(x, y) for x, y in zip(a.model.buffers(), b.model.buffers()))
+                    and all(torch.equal(a.ema.params[n], b.ema.params[n]) for n in a.ema.params)
+                    and all(torch.equal(a.optimizer.state[p][k], b.optimizer.state[q][k])
+                            for p, q in zip(a.model.parameters(), b.model.parameters())
+                            for k in ("exp_avg", "exp_avg_sq", "step")))
+        del again
+        device_ms, rows = kernel_table(trainer.profile, trainer.profile_steps)
+        batch = to_device(next(trainer.datamodule.train_iterator()), trainer.device)
+        with recording_upfirdn() as calls:
+            trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        # kernel durations summed, as the step's device time is: CUDA events around the
+        # calls read 1.7-2x this, idle gaps between autograd's small launches included
+        fir_ms = plain_fir_ms(calls, kernel_ms, trainer.device)
+        split = dict(step_split(trainer))
+        ok = (all(math.isfinite(v) for v in losses + norms) and len(losses) == NCSNPP_TRAIN_STEPS and ema_moved
+              and w_same and restored and traces and trace_mb > 0 and launches == expected
+              and not trainer.callback_failures and not callback_failures_logged(log_path))
+        result = dict(
+            path="float32 NCSN++ DF2K direct 4x trainer", steps=NCSNPP_TRAIN_STEPS, batch=config.training.batch_size,
+            wall_s=wall, ms_per_step_median=float(np.median(ms)), ms_per_step_windows=ms, peak_gib=peak,
+            train_loss=losses, grad_norm=norms, ema_tensors_moved=ema_moved, fourier_w_unchanged=w_same,
+            checkpoint_restored_exactly=restored, trace_files=traces, trace_mib=trace_mb,
+            profile_steps=trainer.profile_steps, device_ms_per_step=device_ms,
+            kernel_launches_per_step=sum(r[2] for r in rows), top_kernels=rows[:25],
+            plain_fir_ms_per_step=fir_ms, plain_fir_calls_per_step=sum(calls.values()),
+            plain_fir_share=fir_ms / device_ms, launches=launches, expected_launches=expected,
+            callback_failures=dict(trainer.callback_failures), **split,
+        )
+        phase("main", t,
+              f"{result['path']}: Trainer.fit({NCSNPP_TRAIN_STEPS}) B={result['batch']} {wall:.3f} s wall, median"
+              f" {result['ms_per_step_median']:.3f} ms/step over steps {first_clean}-{NCSNPP_TRAIN_STEPS}, peak"
+              f" {peak:.3f} GiB; train_loss {['%.3f' % v for v in losses[:3]]}...{losses[-1]:.3f}, grad_norm finite;"
+              f" {ema_moved} EMA tensors moved; W unchanged {w_same}; checkpoint restored exactly {restored};"
+              f" trace {traces} {trace_mb:.1f} MiB of steps 3-{2 + PROFILE_STEPS}: {device_ms:.3f} ms of device"
+              f" time a step, {result['kernel_launches_per_step']:.0f} launches; plain FIR {fir_ms:.3f} ms a step"
+              f" ({result['plain_fir_calls_per_step']} upfirdn2d calls), share {result['plain_fir_share']:.4f};"
+              f" one step: forward+loss {split['forward_loss_ms']:.3f} ms, backward {split['backward_ms']:.3f} ms,"
+              f" optimizer+EMA {split['optimizer_ema_ms']:.3f} ms; launches {launches} (expected {expected})"
+              f" {'ok' if ok else 'FAIL'}")
+        for name, kms, count in rows[:12]:
+            print(f"    {kms:10.3f} ms {count:7.1f}x  {name[:100]}", flush=True)
+        if not ok:
+            raise RuntimeError("NCSN++ trainer: a check failed (losses, EMA, W, checkpoint, trace, launches or a"
+                               " callback)")
+
+        # the KxSR callback once, kernels on, then with the plain FIR on the same draws
+        config.training.visualization_p_steps = KXSR_VIZ_STEPS
+        callback = callbacks.get_callbacks(config)[-1]
+        expected = {name: 0 for name in WRAPPERS}
+        expected.update({k: v * 2 * KXSR_VIZ_STEPS for k, v in per_forward_fir.items()})
+        viz, images = fire_callback("float32 KxSR callback, NCSN++", trainer, callback, 10**9, expected)
+        with plain_versions():
+            _, plain = fire_callback("float32 KxSR callback, NCSN++, plain FIR", trainer, callback, 10**9,
+                                     {name: 0 for name in WRAPPERS})
+        got, want = images["KxSR_samples"], plain["KxSR_samples"]
+        err = float(np.abs(got - want).max())
+        viz.update(steps=KXSR_VIZ_STEPS, grid=list(got.shape), max_abs_err_vs_plain=err)
+        print(f"[main] {viz['wall_s']:.3f} s {viz['path']}: {KXSR_VIZ_STEPS} steps, grid {got.shape}, against the"
+              f" plain FIR {err:.3e} (tol {KXSR_GRID_TOL:.0e}); launches {viz['launches']} (expected {expected})"
+              f" {'ok' if err <= KXSR_GRID_TOL else 'FAIL'}", flush=True)
+        if err > KXSR_GRID_TOL:
+            raise RuntimeError(f"KxSR callback: the grid with the FIR kernels is {err} off the plain FIR's")
+    return result, viz
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2361,6 +2692,12 @@ def main() -> int:
     main_direct, agree_direct = run_direct_8x()
     new_paths = estimator_paths + [main_uncond, train_uncond] + main_vp + [main_pyramid] + sequential_paths
     new_paths.append(main_direct)
+
+    # ---- training as the CLI runs it: the toy, the paired callback, the NCSN++ trainer
+    main_toy = run_toy()
+    main_paired = run_paired_callback(sum(harness_tails.values()))
+    main_ncsnpp_train, main_kxsr_viz = run_ncsnpp_trainer(PER_FORWARD_NCSNPP_PATH)
+    new_paths += [main_toy, main_paired, main_ncsnpp_train, main_kxsr_viz]
 
     bf16 = torch.bfloat16
     tail_line = per_forward_row(

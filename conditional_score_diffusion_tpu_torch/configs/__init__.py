@@ -36,6 +36,7 @@ from .texture160_sr_cmde_conv3x3 import get_config as texture160_sr_cmde_conv3x3
 from .texture64_sr_cmde import get_config as texture64_sr_cmde_config
 from .texture64_sr_cmde_test import get_config as texture64_sr_cmde_test_config
 from .texture64_sr_dv import get_config as texture64_sr_dv_config
+from .toy import synthetic_config, toy_gaussian_bubbles_config, toy_vp_config
 
 __all__ = [
     "Config",
@@ -51,6 +52,7 @@ __all__ = [
     "hq160_sequential_config",
     "hq160_sequential_haar_master_config",
     "image_model_defaults",
+    "synthetic_config",
     "texture160_direct_8x_block_config",
     "texture160_direct_8x_config",
     "texture160_kxsr_ncsnpp_block_config",
@@ -73,5 +75,7 @@ __all__ = [
     "texture64_sr_cmde_config",
     "texture64_sr_cmde_test_config",
     "texture64_sr_dv_config",
+    "toy_gaussian_bubbles_config",
+    "toy_vp_config",
     "unconditional_pkl_config",
 ]

@@ -35,6 +35,7 @@ from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 
+from . import register_datamodule
 from .degradations import bicubic_resize_np, nearest_upsample_np, sr_degrade
 
 _PKL_FILES = {
@@ -251,11 +252,24 @@ class PKLDataModule:
         n = len(self.images(phase)["hr"])
         return self._iterate(n, batch_size, train, train, self.make_batch_fn(phase))
 
+    def setup(self):
+        """Nothing: a split is read at its first use."""
+
     def train_iterator(self, batch_size: Optional[int] = None):
         return self.iterator("train", batch_size or self.config.training.batch_size)
 
+    def val_iterator(self, batch_size: Optional[int] = None):
+        """The eval split, ``eval.loss_split`` (default ``val``): the eval
+        loss and the visualization callbacks read it."""
+        split = self.config.eval.get("loss_split", "val")
+        return self.iterator(split, batch_size or self.config.eval.batch_size)
+
     def test_iterator(self, batch_size: Optional[int] = None):
         return self.iterator("test", batch_size or self.config.eval.batch_size)
+
+
+for _name in DATAMODULES:
+    register_datamodule(PKLDataModule, name=_name)
 
 
 class PrefetchIterator:

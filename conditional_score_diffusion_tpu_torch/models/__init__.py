@@ -13,7 +13,8 @@ get_model = registry.models.get
 
 def create_model(config, device="cuda") -> nn.Module:
     """The model named by ``config.model.name``, built on ``device`` with
-    the DDPM default init (from torch's default generator), in eval mode;
+    its default init (DDPM's, or Flax's Dense init for ``fcn``; from torch's
+    default generator), in eval mode;
     its kernel call sites follow the recipe's ``model.fused_tail`` /
     ``model.fused_block`` and its 3x3 convs ``model.conv_dispatch``
     (`layers.CONV_POLICIES`)."""
@@ -54,6 +55,7 @@ def init_model_random(config, seed: int = 0, scale: float = 0.02, device="cuda")
 
 # Side-effect imports fill the registry.
 from . import ddpm  # noqa: E402,F401
+from . import fcn  # noqa: E402,F401
 from . import ncsnpp  # noqa: E402,F401
 
 __all__ = ["register_model", "get_model", "create_model", "init_model_random"]

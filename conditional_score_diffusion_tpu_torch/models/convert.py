@@ -6,7 +6,8 @@ Module names are the same on both sides (`models/ddpm.py`,
 
   * conv ``kernel`` HWIO          <-> ``weight`` OIHW (3x3 and 1x1 convs)
   * dense ``kernel`` (in, out)    <-> ``weight`` (out, in)   (Dense, NIN,
-    SplitNIN: ``.../dense/kernel``)
+    SplitNIN: ``.../dense/kernel``; the FCN's ``Dense_i`` <-> its
+    ``nn.Linear`` ``Dense_i``)
   * GroupNorm ``scale`` (C,)      <-> ``weight`` (C,)
   * ``bias``                      <-> ``bias``
   * NCSN++ Fourier ``W`` (C,)     <-> the buffer ``W``
@@ -92,19 +93,31 @@ def load_jax_train_state(state, jax_state: Mapping) -> None:
       ``exp_avg``, ``exp_avg_sq`` and ``step``;
     * ``schedule_count``: ``ScaleByScheduleState.count``, the warmup
       schedule's position, which becomes the `LambdaLR`'s.
+
+    A leaf JAX trains as a frozen parameter (NCSN++'s Fourier ``W``, under
+    ``stop_gradient``) is a buffer here: the params entry sets it, and its
+    EMA copy and Adam moments are checked (the same ``W``; zero moments)
+    instead of carried.
     """
     model = state.model
     model.load_state_dict(flax_to_state_dict(jax_state["params"]), strict=True)
+    buffers = dict(model.named_buffers())
     ema = jax_state["ema"]
     with torch.no_grad():
         for name, value in flax_to_state_dict(ema["params"]).items():
-            state.ema.params[name].copy_(value)
+            if name in state.ema.params:
+                state.ema.params[name].copy_(value)
+            elif not torch.equal(buffers[name].cpu(), value):
+                raise ValueError(f"the EMA's {name} differs from the params' (a frozen buffer here)")
     state.ema.decay = float(ema["decay"])
     state.ema.num_updates = int(ema["num_updates"])
 
     adam = jax_state["adam"]
     mu, nu = flax_to_state_dict(adam["mu"]), flax_to_state_dict(adam["nu"])
     count = int(adam["count"])
+    for name in set(mu) - {n for n, _ in model.named_parameters()}:
+        if mu[name].any() or nu[name].any():  # a frozen leaf's moments stay 0 (its gradient is 0)
+            raise ValueError(f"Adam moments of {name}, a buffer here, are not zero")
     for name, p in model.named_parameters():
         state.optimizer.state[p] = {
             "step": torch.tensor(float(count), dtype=torch.float32),

@@ -50,7 +50,10 @@ from .nvcc import KernelLibrary
 from .upfirdn import downsample_2d_plain, upsample_2d_plain
 
 FIR_KERNEL = (1.0, 3.0, 3.0, 1.0)  # every recipe's fir_kernel
-NO_BACKWARD = "the FIR gradient comes with NCSN++ training (ROADMAP.md section 1, item 7)"
+NO_BACKWARD = (
+    "a call that carries a gradient takes the plain version (ops/upfirdn.py); a FIR gradient kernel"
+    " is an open question (ROADMAP.md section 3, FIR gradient)"
+)
 
 INT32_LIMIT = 2**31  # offsets within one image and the thread count are 32-bit
 VEC_BYTES = (16, 8, 4)  # the vector accesses, widest first; below them one element a thread

@@ -10,26 +10,107 @@ the DDPM init from the recipe's seed), with kernel 4 on (``conv_dispatch =
 turns (on, off, off, on, ...); then one profiled window of 2 steps each,
 whose kernels are listed by device time with the device's busy share.  The
 card's name and power limit are printed first.
+
+The split of a profiled window by kernel (:func:`kernel_table`) and the
+plain FIR's device time in a step (:func:`recording_upfirdn`,
+:func:`plain_fir_ms`: every `ops/upfirdn.py:upfirdn2d` call of one step,
+run again forward and, where a gradient flows through it, backward, its
+kernels' durations summed by :func:`kernel_ms`) are what `chip_smoke.py`
+reports for the NCSN++ DF2K direct 4x trainer.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import os
 import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from .configs import texture160_sr_cmde_conv3x3_config
 from .data.pkl_datasets import PKLDataModule
 from .models import create_model
+from .ops import upfirdn
 from .training.state import create_train_state
 from .training.steps import make_train_step, seeded
 from .training.trainer import to_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def kernel_table(prof, steps: int):
+    """``(device ms per step, rows)`` of a profile of ``steps`` steps; a row
+    is ``(kernel, ms per step, launches per step)``, longest first."""
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sorted(((e.key, e.self_device_time_total / 1e3 / steps, e.count / steps) for e in events), key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows
+
+
+@contextlib.contextmanager
+def recording_upfirdn():
+    """Count every `ops/upfirdn.py:upfirdn2d` call made in the block (the
+    plain FIR: every resampling that does not reach `ops/fir.py`'s
+    kernels) by ``(shape, dtype, kernel, up, down, pad, gradient flows)``."""
+    calls = collections.Counter()
+    real = upfirdn.upfirdn2d
+
+    def spy(x, kernel, up=1, down=1, pad=(0, 0)):
+        k = np.asarray(kernel, np.float32)
+        grad = torch.is_grad_enabled() and x.requires_grad
+        calls[(tuple(x.shape), x.dtype, tuple(k.ravel().tolist()), k.shape, up, down, tuple(pad), grad)] += 1
+        return real(x, kernel, up, down, pad)
+
+    upfirdn.upfirdn2d = spy
+    try:
+        yield calls
+    finally:
+        upfirdn.upfirdn2d = real
+
+
+def kernel_ms(fn, warmup: int = 1) -> float:
+    """Device time of one call of ``fn``: the summed durations of the
+    kernels it launches (`torch.profiler`), as :func:`kernel_table` sums a
+    step's; idle time between them does not count."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return kernel_table(prof, 1)[0]
+
+
+def plain_fir_ms(calls, timer, device) -> float:
+    """``timer(fn)`` of one pass over the ``calls`` of
+    :func:`recording_upfirdn`: each distinct call, on random inputs, as
+    many times as it was made, its forward and, where a gradient flowed,
+    ``torch.autograd.grad`` of it (chip_smoke: :func:`kernel_ms`)."""
+    fns = []
+    for (shape, dtype, flat, kshape, up, down, pad, grad), n in calls.items():
+        k = np.asarray(flat, np.float32).reshape(kshape)
+        x = torch.randn(shape, device=device, dtype=dtype, requires_grad=grad)
+        if grad:
+            g = torch.randn_like(upfirdn.upfirdn2d(x, k, up, down, pad))
+
+            def fn(x=x, k=k, up=up, down=down, pad=pad, g=g):
+                torch.autograd.grad(upfirdn.upfirdn2d(x, k, up, down, pad), x, g)
+        else:
+
+            def fn(x=x, k=k, up=up, down=down, pad=pad):
+                upfirdn.upfirdn2d(x, k, up, down, pad)
+
+        fns += [fn] * n
+
+    def every_call():
+        for fn in fns:
+            fn()
+
+    return timer(every_call)
 
 
 def main() -> int:

@@ -44,3 +44,5 @@ models = Registry("model")
 predictors = Registry("predictor")
 correctors = Registry("corrector")
 trainables = Registry("trainable")
+datamodules = Registry("datamodule")
+callbacks = Registry("callback")

@@ -17,10 +17,30 @@ and every
   ``eval.max_val_batches`` batches, 0 for all);
 * ``training.snapshot_freq`` steps, and at the last, saves the train state.
 
-The scalars go, with the JAX tags, to ``<log_path>/scalars.jsonl``, one
-JSON object ``{"tag", "value", "step"}`` a line (the card has no
-TensorBoard).  Callbacks, visualization, sampling during training and the
-profiler window wait for ROADMAP.md section 1, item 5.
+After every step it calls each callback (``fit(callbacks=None)``: the
+recipe's, `callbacks.get_callbacks`) with ``(trainer, step)``.  A callback
+that raises is printed, counted in ``trainer.callback_failures`` by its
+class name, logged as ``callback_failures/<name>`` and its message written
+to ``callback_errors.jsonl``; training goes on (JAX: visualization never
+kills training).  Callback work, like eval and snapshots, re-anchors the
+sustained window.
+
+The datamodule is the recipe's ``data.datamodule`` (`data.create_datamodule`).
+The model comes from ``config.seed`` with its default init.
+
+What it writes (`LogWriter`; the card has no TensorBoard), with the JAX
+tags: scalars to ``<log_path>/scalars.jsonl``, one JSON object ``{"tag",
+"value", "step"}`` a line; images to ``<log_path>/images/<tag>/<step>.png``;
+the 2-D samples and the score-norm curve as ``<log_path>/<tag>/<step>.npy``
+(the curve's values also as scalars ``score_norm_vs_t/t=<t>``); callback
+errors to ``<log_path>/callback_errors.jsonl``.
+
+The profiler window (JAX ``CSDT_PROFILE_DIR``): with that variable set,
+`torch.profiler` records steps ``start + 2`` to ``start + 2 +
+CSDT_PROFILE_STEPS`` (default 10) on the host and the device, writes a
+Chrome trace ``trace_steps_<a>-<b>.json`` into that directory and keeps the
+profile as ``trainer.profile`` (its ``key_averages()`` split the window's
+device time by kernel).
 """
 
 from __future__ import annotations
@@ -33,8 +53,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..data.pkl_datasets import PKLDataModule, PrefetchIterator
+from ..data import create_datamodule
+from ..data.pkl_datasets import PrefetchIterator
 from ..models import create_model
+from .callbacks import get_callbacks
 from .checkpoint import CheckpointManager
 from .schedules import is_decreasing_variance, sigma_y_at_step
 from .state import create_train_state
@@ -60,6 +82,42 @@ class ScalarLog:
             f.write(json.dumps({"tag": tag, "value": float(value), "step": int(step)}) + "\n")
 
 
+class LogWriter(ScalarLog):
+    """The trainer's writer: the scalar log ``<log_path>/scalars.jsonl``, and
+    beside it images, arrays and callback errors under ``log_path``."""
+
+    def __init__(self, log_path: str):
+        super().__init__(os.path.join(log_path, "scalars.jsonl"))
+        self.log_path = log_path
+
+    def _path(self, tag: str, step: int, ext: str) -> str:
+        d = os.path.join(self.log_path, *tag.split("/"))
+        os.makedirs(d, exist_ok=True)
+        return os.path.join(d, f"{int(step)}.{ext}")
+
+    def add_image(self, tag: str, img_chw: np.ndarray, step: int) -> None:
+        """A CHW [0, 1] image as ``images/<tag>/<step>.png`` (8 bits, rounded)."""
+        from ..eval.harness import save_png
+
+        save_png(np.transpose(np.asarray(img_chw), (1, 2, 0)), self._path(f"images/{tag}", step, "png"))
+
+    def add_points(self, tag: str, points: np.ndarray, step: int) -> None:
+        """An ``[N, D]`` array of points as ``<tag>/<step>.npy``."""
+        np.save(self._path(tag, step, "npy"), np.asarray(points, dtype=np.float32))
+
+    def add_curve(self, tag: str, xs: np.ndarray, ys: np.ndarray, step: int) -> None:
+        """A curve as ``<tag>/<step>.npy`` (``[2, N]``: x, y) and each point
+        as the scalar ``<tag>/t=<x>``."""
+        np.save(self._path(tag, step, "npy"), np.stack([np.asarray(xs, np.float64), np.asarray(ys, np.float64)]))
+        for x, y in zip(xs, ys):
+            self.add_scalar(f"{tag}/t={float(x):.4f}", float(y), step)
+
+    def add_text(self, tag: str, text: str, step: int) -> None:
+        """One ``{"tag", "text", "step"}`` line of ``callback_errors.jsonl``."""
+        with open(os.path.join(self.log_path, "callback_errors.jsonl"), "a") as f:
+            f.write(json.dumps({"tag": tag, "text": str(text), "step": int(step)}) + "\n")
+
+
 def read_scalars(path: str):
     """The ``(tag, value, step)`` records of a scalar log, in order."""
     with open(path) as f:
@@ -74,7 +132,8 @@ class Trainer:
         self.device = torch.device(device)
         os.makedirs(log_path, exist_ok=True)
 
-        self.datamodule = PKLDataModule(config)
+        self.datamodule = create_datamodule(config)
+        self.datamodule.setup()
         with seeded(config.seed, self.device):
             self.model = create_model(config, self.device)
         self.task = create_task(config, self.model)
@@ -87,7 +146,9 @@ class Trainer:
             CheckpointManager(checkpoint_path).restore(self.state)
         elif self.ckpt.latest_step() is not None:
             self.ckpt.restore(self.state)
-        self.writer = ScalarLog(os.path.join(log_path, "scalars.jsonl"))
+        self.writer = LogWriter(log_path)
+        self.callback_failures: Dict[str, int] = {}
+        self.profile, self.profile_steps = None, 0
 
     def log_scalar(self, tag: str, value: float, step: int):
         self.writer.add_scalar(tag, value, step)
@@ -96,9 +157,8 @@ class Trainer:
         """Mean EMA loss over the eval split's batches; batch i draws from
         a generator seeded by ``(seed, step, i)``."""
         max_batches = int(self.config.eval.get("max_val_batches", 0) or 0)
-        split = self.config.eval.get("loss_split", "val")
         losses = []
-        for i, batch in enumerate(self.datamodule.iterator(split, self.config.eval.batch_size)):
+        for i, batch in enumerate(self.datamodule.val_iterator()):
             if max_batches and i >= max_batches:
                 break
             batch = to_device(self.task.prepare_batch(batch), self.device)
@@ -106,23 +166,33 @@ class Trainer:
             losses.append(float(self.eval_step(self.state, batch, gen)["eval_loss"]))
         return float(np.mean(losses)) if losses else float("nan")
 
-    def fit(self, max_steps: Optional[int] = None) -> Dict[str, Any]:
+    def fit(self, max_steps: Optional[int] = None, callbacks=None) -> Dict[str, Any]:
         config = self.config
+        if callbacks is None:
+            callbacks = get_callbacks(config, phase="train")
         n_iters = max_steps if max_steps is not None else config.training.n_iters
         log_freq = config.training.get("log_freq", 250)
         eval_freq = config.training.get("eval_freq", 2500)
         snapshot_freq = config.training.get("snapshot_freq", 5000)
+        profile_dir = os.environ.get("CSDT_PROFILE_DIR")
+        profile_steps = int(os.environ.get("CSDT_PROFILE_STEPS", "10"))
 
         train_iter = PrefetchIterator(self.datamodule.train_iterator(), depth=2)
         history = {"train_loss": [], "eval_loss": []}
         self.state.model.train()
         t_last = time.time()
         # The sustained window: steps since the last log, re-anchored after
-        # eval/snapshot work so ms_per_step never absorbs host work.
+        # eval/snapshot/callback work so ms_per_step never absorbs host work.
         window_step = self.state.step
         start = self.state.step
+        prof = None
         try:
             for step in range(start, n_iters):
+                if profile_dir and step == start + 2:
+                    prof = self._start_profile()
+                if prof is not None and step == start + 2 + profile_steps:
+                    self._stop_profile(prof, profile_dir, start + 2, step)
+                    prof = profile_dir = None
                 batch = to_device(self.task.prepare_batch(next(train_iter)), self.device)
                 metrics = self.train_step(self.state, batch)
 
@@ -156,12 +226,48 @@ class Trainer:
                     self.log_scalar("eval_loss", eval_loss, step + 1)
                 if (step + 1) % snapshot_freq == 0 or (step + 1) == n_iters:
                     self.ckpt.save(self.state.step, self.state)
+                for cb in callbacks:
+                    self._run_callback(cb, step + 1)
                 if time.time() - t_host0 > 0.05:
                     t_last = time.time()
                     window_step = step + 1
         finally:
             train_iter.close()
+            if prof is not None:  # the run ended inside the window
+                self._stop_profile(prof, profile_dir, start + 2, n_iters)
         return history
+
+    def _run_callback(self, cb, step: int) -> None:
+        """``cb(self, step)``; a failure is printed, counted and logged, and
+        training goes on (JAX `training/trainer.py`)."""
+        try:
+            cb(self, step)
+        except Exception as e:
+            name = type(cb).__name__
+            msg = f"{type(e).__name__}: {e}"
+            print(f"[callback {name}] {msg}", flush=True)
+            self.callback_failures[name] = self.callback_failures.get(name, 0) + 1
+            self.log_scalar(f"callback_failures/{name}", self.callback_failures[name], step)
+            self.writer.add_text(f"callback_errors/{name}", msg, step)
+
+    def _start_profile(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, profile_dir: str, first: int, end: int) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"trace_steps_{first + 1}-{end}.json")
+        prof.export_chrome_trace(path)
+        self.profile = prof
+        self.profile_steps = end - first
+        print(f"[profiler] trace of steps {first + 1}-{end} written to {path}", flush=True)
 
 
 def train(config, log_path: str, checkpoint_path: Optional[str] = None, max_steps: Optional[int] = None,

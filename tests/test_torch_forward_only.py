@@ -64,5 +64,5 @@ def test_a_parameter_requiring_grad_is_enough():
 
 def test_the_fir_message_names_its_roadmap_item():
     out = fir.fir_upsample2(torch.randn(1, 4, 4, 6, requires_grad=True))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md section 3, FIR gradient"):
         out.sum().backward()

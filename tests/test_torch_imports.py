@@ -68,6 +68,6 @@ def test_port_imports_without_jax():
         "configs.texture64_sr_cmde_test", "sde.vp", "configs.extra", "configs.texture160_sr",
         "configs.texture64_sr_dv", "sampling.pc", "sampling.predictors", "sampling.correctors",
         "ops.haar", "eval.multiscale", "configs.multiscale", "training.callbacks", "models.ddpm",
-        "data.pkl_datasets",
+        "data.pkl_datasets", "data.synthetic", "models.fcn", "configs.toy", "eval.toy",
     ):
         assert f"conditional_score_diffusion_tpu_torch.{name}" in names, name

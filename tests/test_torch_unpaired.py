@@ -66,6 +66,7 @@ def unconditional_toy_recipe():
     config.training.log_freq = 1
     config.training.eval_freq = 3
     config.training.snapshot_freq = 2
+    config.training.visualization_p_steps = 2  # the recipe's callback fires at the snapshot
     config.eval.batch_size = 2
     config.eval.max_val_batches = 1
     config.eval.loss_split = "test"
