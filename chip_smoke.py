@@ -67,21 +67,21 @@ Phases, each printing its own line with its seconds:
    8x SR degradation), the full-width ddpm_paired with seeded N(0, 0.02)
    weights, bfloat16 compute through `get_score_fn(compute_dtype=...)` ->
    `get_conditional_score_fn` -> `get_pc_conditional_sampler` (as the JAX
-   bench composes it), fused_block and fused_tail on, 100 of the recipe's
+   bench composes it), fused_block and fused_tail on, 50 of the recipe's
    1000 steps (its time per evaluation does not depend on the count).  Each
    kernel's launch counter, set to 0 just before, must read exactly its
-   count per forward x 2 x 100 just after.
+   count per forward x 2 x 50 just after.
 6. main (the float32 tail path): the same batch and weights, float32,
-   fused_tail only, through `get_conditional_sampling_fn`, 50 steps; the
-   tail's counter must read 17 x 2 x 50.
+   fused_tail only, through `get_conditional_sampling_fn`, 25 steps; the
+   tail's counter must read 17 x 2 x 25.
 7. main (the NCSN++ path): the DF2K direct 4x recipe on texture160
    (`texture160_kxsr_ncsnpp`): the first 8 test pairs (the recipe's eval
    batch of 32 cut to 8), x 160x160 and y the committed 40x40 LQ images;
    the full-width ncsnpp_KxSR (nf=64, ch_mult (1,1,2,2,4,4), 32.1 M
    parameters) with seeded N(0, 0.02) weights; the multi-speed VE SDE with
    sigma_y as the VS-CMDE schedule leaves it (sigma_y,max 138.6); float32
-   through `get_conditional_sampling_fn`, 100 steps; the FIR counters must
-   read 15 x 2 x 100 each.  Then one backward through the same model at
+   through `get_conditional_sampling_fn`, 50 steps; the FIR counters must
+   read 15 x 2 x 50 each.  Then one backward through the same model at
    B=1 (`ncsnpp_backward`): finite gradients equal by norm to those with
    every FIR call on its plain version, and the FIR kernels launched only
    on the input pyramid, none in the backward.
@@ -194,8 +194,40 @@ Phases, each printing its own line with its seconds:
    at ``visualization_p_steps = 20``: FIR kernels 6-7 counted exactly, the
    grid against the same callback with the plain FIR at 1e-4.
    Every phase's trainer must have recorded no callback failure.
-19. result: a JSON line of the kernels (with each one's launches on the
-   paths of phases 10-18), the nvidia-smi line, and last
+19. main (the probability-flow ODE sampler, new): JAX's analytic test on
+   the card (VE sigma 0.01-10, N = 200, 2048 x 1 samples from the exact
+   score of N(1.5, 0.5^2): each sample the exact flow of its prior draw at
+   1e-4, mean and std within 0.08 of the flow's), then
+   `texture160_unconditional_ncsnpp` with ``sampling.method = "ode"``
+   through `get_sampling_fn` (B = 8, 128px, float32, seeded weights): the
+   score evaluations counted by a hook on the model, each FIR counter at
+   6 x that count; the same prior with every FIR call on its plain
+   version: where both took the same steps the samples at 1e-4 of their
+   scale, else by norm at 1e-3; ms per evaluation and seconds.
+20. main (bits/dim, new): JAX's analytic N(0, 1) test (within 0.1);
+   `evaluate_bpd` on the same NCSN++, the texture160 test split through
+   `unpaired_PKLDataset` at 128px, one batch of 2 (cut from the recipe's
+   eval batch and JAX's 8 batches): bpd and z finite, every FIR counter 0
+   (every call carries a gradient), score evaluations, seconds, peak
+   memory; the reverse-mode divergence against `torch.func.jvp` on the
+   plain path at one (x, t), 1e-4 relative; one divergence of the
+   texture64 Haar DDPM with fused_block and fused_tail on (B = 2): kernels
+   1-3 at 0 launches, the value the knobs-off one's at 1e-5.
+21. main (inpainting and colorization, new; every SDE cut from 1000 to 20
+   steps): `get_inpainting_fn` on the NCSN++, texture160 test batch 0 (B =
+   8, 128px), a random square mask of coverage 0.25: the known pixels the
+   data's at 1e-6, the FIR counters at 6 x 2 x 20; `get_pc_colorizer`
+   (reverse_diffusion + langevin, snr 0.15) on the batch's grayscale: its
+   decoupled gray channel the input's at 1e-4 of the output's largest
+   magnitude, the FIR counters exact;
+   `HaarMultiScaleTask.inpaint_hf` on `texture64_haar_multiscale_unconditional_block`
+   (DDPM nf 128, 32x32x12 coefficients, random weights) with the DC band of
+   texture64 test batch 0 (B = 8): kernels 1-3 against plain at its sites
+   no earlier phase checked, kernels on against off over 3 steps (1e-4,
+   launches exact), then 20 steps with the output's DC the input's at 1e-5
+   and every counter at its calls per forward x 2 x 20.
+22. result: a JSON line of the kernels (with each one's launches on the
+   paths of phases 10-21), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -238,6 +270,8 @@ from conditional_score_diffusion_tpu_torch.configs import (  # noqa: E402
     texture160_sr_vscmde_config,
     texture160_sr_vscmde_slow_config,
     texture160_unconditional_ncsnpp_config,
+    texture64_haar_multiscale_unconditional_block_config,
+    texture64_haar_multiscale_unconditional_config,
     texture64_multiscale_master_block_config,
     texture64_multiscale_master_config,
     texture64_sr_cmde_config,
@@ -250,12 +284,17 @@ from conditional_score_diffusion_tpu_torch.configs.multiscale import (  # noqa: 
     texture160_sequential_master_config,
     write_texture160_sequential_data,
 )
-from conditional_score_diffusion_tpu_torch.data.degradations import bicubic_lq_images  # noqa: E402
+from conditional_score_diffusion_tpu_torch.data.degradations import (  # noqa: E402
+    bicubic_lq_images,
+    grayscale,
+    random_square_mask,
+)
 from conditional_score_diffusion_tpu_torch.data.pkl_datasets import (  # noqa: E402
     PKLDataModule,
     iter_test_batches,
     load_pkl_images,
 )
+from conditional_score_diffusion_tpu_torch.eval import bpd as bpd_eval  # noqa: E402
 from conditional_score_diffusion_tpu_torch.eval import multiscale  # noqa: E402
 from conditional_score_diffusion_tpu_torch.eval.harness import load_model, output_dir, run_test  # noqa: E402
 from conditional_score_diffusion_tpu_torch.eval.metrics import psnr as psnr_fn  # noqa: E402
@@ -282,12 +321,20 @@ from conditional_score_diffusion_tpu_torch.losses import build_loss_fn  # noqa: 
 from conditional_score_diffusion_tpu_torch.sampling import (  # noqa: E402
     get_conditional_sampling_fn,
     get_corrector,
+    get_inpainting_fn,
+    get_likelihood_fn,
+    get_ode_sampler,
+    get_pc_colorizer,
     get_pc_conditional_sampler,
     get_sampling_fn,
 )
-from conditional_score_diffusion_tpu_torch.sde import VPSDE, batch_mul, build_sde, is_multispeed  # noqa: E402
+from conditional_score_diffusion_tpu_torch.sampling.controllable import decouple  # noqa: E402
+from conditional_score_diffusion_tpu_torch.sampling.likelihood import get_div_fn  # noqa: E402
+from conditional_score_diffusion_tpu_torch.sde import VESDE, VPSDE, batch_mul, build_sde, is_multispeed  # noqa: E402
 from conditional_score_diffusion_tpu_torch.sde.factory import is_conditional_config  # noqa: E402
 from conditional_score_diffusion_tpu_torch.training import callbacks  # noqa: E402
+from conditional_score_diffusion_tpu_torch.training.tasks import create_task  # noqa: E402
+from conditional_score_diffusion_tpu_torch.ops.haar import haar_forward  # noqa: E402
 from conditional_score_diffusion_tpu_torch.training.checkpoint import (  # noqa: E402
     CheckpointManager,
     load_eval_weights,
@@ -382,8 +429,8 @@ PER_FORWARD_NCSNPP_PATH = {"fir_upsample2": 15, "fir_downsample2": 15}
 # raw input's pyramid (160 to 10, 6 channels) needs none, so only its 5
 # downsamples launch a kernel; every other call takes its plain version.
 NCSNPP_GRAD_FORWARD = {"fir_upsample2": 0, "fir_downsample2": 5}
-STEPS = 100  # the bfloat16 block path and the NCSN++ path, cut from their 1000 to keep the run short
-TAIL_PATH_STEPS = 50  # the float32 tail path, cut from 1000 likewise
+STEPS = 50  # the bfloat16 block path and the NCSN++ path, cut from their 1000 to keep the run short
+TAIL_PATH_STEPS = 25  # the float32 tail path, cut from 1000 likewise
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Kernels on against off, bfloat16 compute (see `agreement`).
 BF16_AGREE_TOL = 2e-2
@@ -551,6 +598,42 @@ NCSNPP_TRAIN_STEPS = 20
 PROFILE_STEPS = 3  # CSDT_PROFILE_STEPS: the trace covers steps 3-5 (10 steps wrote 229 MiB)
 KXSR_VIZ_STEPS = 20  # the KxSR callback's training.visualization_p_steps
 KXSR_GRID_TOL = 1e-4  # the callback's grid, FIR kernels against the plain FIR
+
+# The other samplers (phases 19-21), float32, seeded N(0, 0.02) weights.
+# Phase 19: the probability-flow ODE, first JAX's analytic test
+# (`tests/test_sampling.py:201-206`: VE sigma 0.01-10, N = 200, 2048 x 1
+# samples of N(1.5, 0.5^2), eps 1e-4), each sample against the exact flow
+# of its prior draw at 1e-4 and the mean and std within 0.08 of where the
+# flow takes the zero-mean prior (JAX's target mean sits 0.075 above it, so
+# its gate fails for a third of the prior draws: seed 0 on the card gave
+# 1.41187); then the
+# unconditional NCSN++ through `get_sampling_fn` (B = 8, 128px), each FIR
+# kernel at its calls per forward x the score evaluations; the same prior
+# with the plain FIR: where the step counts agree the samples at 1e-4 of
+# their scale, else by norm at 1e-3.
+ODE_ANALYTIC_SHAPE, ODE_ANALYTIC_TOL = (2048, 1), 0.08
+ODE_AGREE_TOL, ODE_NORM_TOL = 1e-4, 1e-3
+# Phase 20: bits/dim.  JAX's analytic N(0, 1) test (within 0.1 of
+# log2(sqrt(2 pi e)) + 8); `evaluate_bpd` on the texture160 test split at
+# 128px cut to one batch (`BPD_MAX_BATCHES`, of JAX's 8) of two
+# (`BPD_BATCH`, of the recipe's eval batch), every FIR call on its plain
+# version (all carry a gradient); the reverse-mode divergence against
+# `torch.func.jvp` at one (x, t), 1e-4 relative; kernels 1-3 off under a
+# gradient on the Haar DDPM (B = 2), the divergence equal to the one with
+# the knobs off at 1e-5.
+BPD_BATCH, BPD_MAX_BATCHES = 2, 1
+DIV_JVP_TOL, DIV_KNOBS_TOL = 1e-4, 1e-5
+# Phase 21: inpainting and colorization, every SDE cut from 1000 steps to
+# `PROJECTED_STEPS`: the NCSN++ on texture160 test batch 0 (B = 8) with a
+# random square mask of coverage 0.25 (JAX `configs/inverse_problems.py:92`),
+# the colorizer on its grayscale; `inpaint_hf` on the texture64 Haar DDPM's
+# DC band (test batch 0, B = 8) with fused_block and fused_tail, kernels on
+# against off over `PYRAMID_SHORT` steps first.  The colorizer's gray
+# channel is held at `GRAY_TOL` of the output's largest magnitude: the
+# round trip through the orthonormal basis rounds relative to the whole
+# pixel, and the random network's chroma reaches ~1e3.
+PROJECTED_STEPS, MASK_COVERAGE = 20, 0.25
+KNOWN_TOL, GRAY_TOL, DC_TOL = 1e-6, 1e-4, 1e-5
 
 WRAPPERS = {
     "gn_silu_conv3x3": fused_tail.gn_silu_conv3x3,
@@ -2518,6 +2601,392 @@ def run_ncsnpp_trainer(per_forward_fir):
     return result, viz
 
 
+# ---- the other samplers: the ODE, bits/dim, inpainting and colorization ----
+
+
+def counted_forwards(model):
+    """A counter of ``model``'s forwards (one a score evaluation) and its hook."""
+    count = [0]
+    return count, model.register_forward_pre_hook(lambda module, args: count.__setitem__(0, count[0] + 1))
+
+
+def zero_launches():
+    torch.cuda.synchronize()
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def read_launches():
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def expect_launches(label, launches, per_forward, evaluations):
+    expected = {name: per_forward.get(name, 0) * evaluations for name in WRAPPERS}
+    if launches != expected:
+        raise RuntimeError(f"{label}: launches {launches}, expected {expected}")
+    return expected
+
+
+def gaussian_score(sde, mu, s):
+    """The exact score of data N(mu, s^2) under a VE SDE."""
+
+    def score(x, t):
+        return -batch_mul(1.0 / (s**2 + sde.marginal_prob(x, t)[1] ** 2), x - mu)
+
+    return score
+
+
+def unconditional_setup():
+    """The unconditional NCSN++ (B=8, 128px, seeded weights) and texture160
+    test batch 0 resized to 128px by `unpaired_PKLDataset`."""
+    config = datasets_dir(texture160_unconditional_ncsnpp_config())
+    model = init_model_random(config, seed=config.seed, device="cuda")
+    batch = torch.from_numpy(next(PKLDataModule(config).test_iterator(UNCOND_BATCH))).cuda()
+    return config, model, batch
+
+
+def run_ode():
+    """Phase 19: the probability-flow ODE sampler."""
+    t = time.perf_counter()
+    mu, s, eps = 1.5, 0.5, 1e-4
+    sde = VESDE(sigma_min=0.01, sigma_max=10.0, N=200)
+    nfe = [0]
+    exact = gaussian_score(sde, mu, s)
+
+    def score(x, vec_t):
+        nfe[0] += 1
+        return exact(x, vec_t)
+
+    z = torch.randn(ODE_ANALYTIC_SHAPE, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    z = z * sde.sigma_max
+    samples, info = get_ode_sampler(sde, ODE_ANALYTIC_SHAPE, denoise=False, eps=eps)(None, score, z=z)
+    # the flow of the exact score is x - mu = (z - mu) sqrt((s^2 + sigma(t)^2) / (s^2 + sigma_max^2)): the
+    # zero-mean prior lands at mean mu (1 - r), std r sigma_max, 0.075 under JAX's target mean
+    r = math.sqrt((s**2 + sde.sigma_min**2 * (sde.sigma_max / sde.sigma_min) ** (2 * eps)) / (s**2 + sde.sigma_max**2))
+    flow = mu + (z - mu) * r
+    flow_err = rel_err(samples, flow)
+    mean, std = samples.mean().item(), samples.std().item()
+    analytic = dict(nfe=nfe[0], mean=mean, std=std, flow_rel_err=flow_err, flow_mean=mu * (1 - r),
+                    flow_std=r * sde.sigma_max, info=info)
+    ok = (flow_err <= ODE_AGREE_TOL and abs(mean - mu * (1 - r)) < ODE_ANALYTIC_TOL
+          and abs(std - r * sde.sigma_max) < ODE_ANALYTIC_TOL and info == {"nfe": -1})
+    phase("main", t, f"ODE sampler, exact score of N({mu}, {s}^2), 2048 x 1: against the exact flow of each prior"
+                     f" draw rel err {flow_err:.3e} (tol {ODE_AGREE_TOL:.0e}); mean {mean:.5f} std {std:.5f}, the"
+                     f" flow's {mu * (1 - r):.5f} / {r * sde.sigma_max:.5f} (tol {ODE_ANALYTIC_TOL}; JAX's test"
+                     f" holds them against {mu} / {s}); {nfe[0]} score evaluations {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("ODE sampler: the analytic Gaussian's flow is not recovered")
+
+    t = time.perf_counter()
+    config, model, _ = unconditional_setup()
+    config.sampling.method = "ode"
+    sde, eps = build_sde(config)
+    shape = (UNCOND_BATCH, config.data.image_size, config.data.image_size, 3)
+    fn = get_sampling_fn(config, sde, shape, eps)
+    count, hook = counted_forwards(model)
+    runs = {}
+    for label, ctx in (("kernels", contextlib.nullcontext), ("plain", plain_versions)):
+        count[0] = 0
+        zero_launches()
+        start = time.perf_counter()
+        with ctx():
+            x, info = fn(torch.Generator(device="cuda").manual_seed(config.seed), model)
+        torch.cuda.synchronize()
+        runs[label] = dict(x=x, nfe=count[0], seconds=time.perf_counter() - start, launches=read_launches(),
+                           info=info)
+    hook.remove()
+    on, off = runs["kernels"], runs["plain"]
+    expected = expect_launches("ODE sampler", on["launches"], PER_FORWARD_UNCOND_PATH, on["nfe"])
+    if any(off["launches"].values()):
+        raise RuntimeError(f"ODE sampler with the plain FIR: launches {off['launches']}")
+    same_steps = on["nfe"] == off["nfe"]
+    err = rel_err(on["x"], off["x"]) if same_steps else norm_rel_err(on["x"], off["x"])
+    tol = ODE_AGREE_TOL if same_steps else ODE_NORM_TOL
+    finite = bool(torch.isfinite(on["x"]).all()) and tuple(on["x"].shape) == shape
+    ms = on["seconds"] / on["nfe"] * 1e3
+    result = dict(path="float32 unconditional NCSN++ probability-flow ODE", nfe=on["nfe"], nfe_plain=off["nfe"],
+                  wall_s=on["seconds"], wall_s_plain=off["seconds"], ms_per_score_eval=ms,
+                  ms_per_score_eval_plain=off["seconds"] / off["nfe"] * 1e3, same_steps=same_steps,
+                  agreement="max abs / max" if same_steps else "norm", rel_err=err, tol=tol,
+                  launches=on["launches"], analytic=analytic)
+    ok = finite and err <= tol and on["info"] == {"nfe": -1}
+    phase("main", t, f"ODE sampler, unconditional NCSN++ B={UNCOND_BATCH} 128px: {on['nfe']} score evaluations"
+                     f" ({off['nfe']} with the plain FIR), {on['seconds']:.3f} s, {ms:.3f} ms per evaluation"
+                     f" ({result['ms_per_score_eval_plain']:.3f} plain); samples finite={finite} range"
+                     f" [{on['x'].min().item():.3f}, {on['x'].max().item():.3f}]; against the plain FIR"
+                     f" ({result['agreement']}, same steps: {same_steps}) rel err {err:.3e} (tol {tol:.0e});"
+                     f" launches {on['launches']} (expected {expected}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("ODE sampler: the samples are wrong or disagree with the plain FIR's")
+    return result
+
+
+def run_bpd():
+    """Phase 20: bits/dim through the likelihood ODE."""
+    t = time.perf_counter()
+    sde = VESDE(sigma_min=0.01, sigma_max=10.0, N=200)
+    data = torch.randn(512, 2, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    bpd, z, _ = get_likelihood_fn(sde, eps=1e-5)(
+        torch.Generator(device="cuda").manual_seed(1), gaussian_score(sde, 0.0, 1.0), data
+    )
+    analytic = 0.5 * math.log2(2 * math.pi * math.e) + 8.0
+    err = abs(bpd.mean().item() - analytic)
+    ok = err < 0.1 and bool(torch.isfinite(z).all())
+    phase("main", t, f"likelihood, exact score of N(0, 1), 512 x 2: bpd {bpd.mean().item():.5f} against"
+                     f" {analytic:.5f} (tol 0.1) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("likelihood: the analytic bpd is not recovered")
+
+    t = time.perf_counter()
+    config, model, _ = unconditional_setup()
+    config.eval.batch_size = BPD_BATCH
+    sde, _ = build_sde(config)
+    seen = []
+    real = bpd_eval.get_likelihood_fn
+
+    def recording(*args, **kwargs):
+        fn = real(*args, **kwargs)
+
+        def likelihood_fn(*a, **k):
+            out = fn(*a, **k)
+            seen.append(out)
+            return out
+
+        return likelihood_fn
+
+    count, hook = counted_forwards(model)
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    bpd_eval.get_likelihood_fn = recording
+    try:
+        start = time.perf_counter()
+        mean_bpd = bpd_eval.evaluate_bpd(config, model, PKLDataModule(config), max_batches=BPD_MAX_BATCHES)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+    finally:
+        bpd_eval.get_likelihood_fn = real
+        hook.remove()
+    launches = read_launches()
+    bpd, z, _ = seen[0]
+    finite = math.isfinite(mean_bpd) and bool(torch.isfinite(bpd).all()) and bool(torch.isfinite(z).all())
+
+    # the reverse-mode divergence against forward mode, both on the plain path
+    x = torch.from_numpy(next(PKLDataModule(config).test_iterator(BPD_BATCH))).cuda()
+    probe = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    rsde = sde.reverse(get_score_fn(sde, model, continuous=True), probability_flow=True)
+    vec = torch.tensor(0.5, device="cuda")
+
+    def drift_fn(xx, tt):
+        return rsde.sde(xx, tt.expand(xx.shape[0]))[0]
+
+    with plain_versions():
+        div = get_div_fn(drift_fn)(x, vec, probe)
+        _, jvp = torch.func.jvp(lambda xx: drift_fn(xx, vec), (x,), (probe,))
+    want = torch.sum(jvp * probe, dim=(1, 2, 3))
+    div_err = rel_err(div, want)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    result = dict(path="float32 unconditional NCSN++ evaluate_bpd", bpd=mean_bpd, bpd_per_image=bpd.tolist(),
+                  nfe=count[0], wall_s=seconds, ms_per_score_eval=seconds / count[0] * 1e3, peak_gib=peak,
+                  launches=launches, div_vs_jvp_rel_err=div_err, cuts=dict(eval_batch=BPD_BATCH,
+                                                                           max_batches=BPD_MAX_BATCHES))
+    ok = finite and not any(launches.values()) and div_err <= DIV_JVP_TOL
+    phase("main", t, f"evaluate_bpd, unconditional NCSN++, texture160 test split at 128px, {BPD_MAX_BATCHES}"
+                     f" batch of {BPD_BATCH} (cut from 8 batches of the recipe's eval batch): bpd {mean_bpd:.5f}"
+                     f" ({', '.join(f'{v:.5f}' for v in bpd.tolist())}), z finite {finite}; {count[0]} score"
+                     f" evaluations (each with its backward), {seconds:.3f} s, peak {peak:.3f} GiB; launches"
+                     f" {launches} (every FIR call carries a gradient: all 0); reverse-mode divergence against"
+                     f" torch.func.jvp at t=0.5: rel err {div_err:.3e} (tol {DIV_JVP_TOL:.0e})"
+                     f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("evaluate_bpd: a value is not finite, a kernel launched, or the divergence is wrong")
+    del model
+
+    t = time.perf_counter()
+    on, off = texture64_haar_multiscale_unconditional_block_config(), texture64_haar_multiscale_unconditional_config()
+    model_on = init_model_random(on, seed=on.seed, device="cuda")
+    model_off = create_model(off, "cuda")
+    model_off.load_state_dict(model_on.state_dict())
+    sde, _ = build_sde(on)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(BPD_BATCH, 32, 32, 12, generator=g, device="cuda") * 10.0
+    probe = torch.randn(x.shape, generator=g, device="cuda")
+    divs = {}
+    for label, m in (("on", model_on), ("off", model_off)):
+        rsde = sde.reverse(get_score_fn(sde, m, continuous=True), probability_flow=True)
+        zero_launches()
+        divs[label] = get_div_fn(lambda xx, tt: rsde.sde(xx, tt.expand(xx.shape[0]))[0])(x, vec, probe)
+        divs[label + "_launches"] = read_launches()
+    knobs_err = rel_err(divs["on"], divs["off"])
+    ok = not any(divs["on_launches"].values()) and knobs_err <= DIV_KNOBS_TOL
+    phase("main", t, f"divergence of the texture64 Haar DDPM (fused_block, fused_tail, eval) B={BPD_BATCH}:"
+                     f" launches {divs['on_launches']} (a gradient takes the plain versions: all 0), against the"
+                     f" knobs off rel err {knobs_err:.3e} (tol {DIV_KNOBS_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("Haar DDPM divergence: a kernel launched under a gradient, or the value differs")
+    result.update(haar_div_launches=divs["on_launches"], haar_div_knobs_rel_err=knobs_err)
+    return result
+
+
+def haar_sites(config):
+    """Kernels 1-3 sites of one forward of ``config``'s Haar DDPM (32x32x12
+    coefficients, B=8): `forward_calls` by kernel and shape."""
+    x = torch.empty(BATCH, 32, 32, 12, device="meta")
+    return forward_calls(config, BATCH, x)
+
+
+def check_haar_sites(calls):
+    """Kernels 1-3 against plain at each site of the Haar DDPM that no
+    earlier phase checked at B=8 with the DDPM's groups, float32 and
+    bfloat16, with and without temb; returns the sites checked."""
+    done_tails = set(CHAIN_TAIL_SHAPES)
+    done_blocks = {tuple(b) for b in CHAIN_BLOCK_SHAPES}
+    tails = sorted(k for k in sites(calls, "gn_silu_conv3x3") if k not in done_tails)
+    blocks = sorted(k for k in sites(calls, "resblock_fused", "resblock_fused_split") if k not in done_blocks)
+    for h, c in tails:
+        g = legacy_num_groups(c)
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_temb in (False, True):
+                x, w, gamma, beta, bias, temb = tail_inputs(h, c, dtype, seed=h * c + 5)
+                temb = temb if with_temb else None
+                check_close(f"Haar DDPM tail {BATCH}x{h}x{h}x{c} ({g} groups) {dname(dtype)} temb={with_temb}",
+                            fused_tail.gn_silu_conv3x3(x, w, gamma, beta, g, bias=bias, temb=temb),
+                            fused_tail.gn_silu_conv3x3_plain(x, w, gamma, beta, g, bias=bias, temb=temb), dtype)
+    for name, h, ca, cb, cout in blocks:
+        g0, g1 = legacy_num_groups(ca + cb), legacy_num_groups(cout)
+        label = f"Haar DDPM {name} {BATCH}x{h}x{h}x{ca}" + (f"+{cb}" if cb else "") + f"->{cout} ({g0}/{g1} groups)"
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_temb in (True, False):
+                x, skip, kw = block_inputs(h, ca, cb, cout, dtype, seed=h * (ca + cb) + 5, with_temb=with_temb)
+                kw.update(num_groups0=g0, num_groups1=g1)
+                check_close(f"{label} {dname(dtype)} temb={with_temb}",
+                            block_call(x, skip, kw), block_call(x, skip, kw, plain=True), dtype)
+    return tails, blocks
+
+
+def evaluations_per_step(config):
+    """Score evaluations of one PC step: the corrector's and the predictor's."""
+    s = config.sampling
+    return (s.n_steps_each if s.corrector.lower() != "none" else 0) + (s.predictor.lower() != "none")
+
+
+def run_projected():
+    """Phase 21: inpainting and colorization."""
+    t = time.perf_counter()
+    config, model, batch = unconditional_setup()
+    config.model.num_scales = PROJECTED_STEPS
+    sde, eps = build_sde(config)
+    evals = evaluations_per_step(config) * PROJECTED_STEPS
+    mask = torch.from_numpy(random_square_mask(tuple(batch.shape), MASK_COVERAGE,
+                                               np.random.default_rng(config.seed))).cuda()
+    zero_launches()
+    start = time.perf_counter()
+    out, _ = get_inpainting_fn(config, sde, eps)(torch.Generator(device="cuda").manual_seed(1), model, batch, mask)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = read_launches()
+    expected = expect_launches("inpainter", launches, PER_FORWARD_UNCOND_PATH, evals)
+    known = mask.expand_as(batch).bool()
+    known_err = (out[known] - batch[known]).abs().max().item()
+    finite = bool(torch.isfinite(out).all())
+    inpaint = dict(path="float32 unconditional NCSN++ PC inpainter", steps=PROJECTED_STEPS, wall_s=seconds,
+                   ms_per_score_eval=seconds / evals * 1e3, known_max_abs_err=known_err, launches=launches)
+    ok = finite and known_err <= KNOWN_TOL
+    phase("main", t, f"inpainter, unconditional NCSN++ B={UNCOND_BATCH} 128px, square mask coverage"
+                     f" {MASK_COVERAGE}, {PROJECTED_STEPS} steps (cut from 1000): {seconds:.3f} s,"
+                     f" {inpaint['ms_per_score_eval']:.3f} ms per evaluation; finite {finite}; known pixels against"
+                     f" the data max abs err {known_err:.3e} (tol {KNOWN_TOL:.0e}); launches {launches}"
+                     f" (expected {expected}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("inpainter: the known pixels moved or the samples are not finite")
+
+    t = time.perf_counter()
+    gray = torch.from_numpy(np.repeat(grayscale(batch.cpu().numpy()), 3, axis=-1)).cuda()
+    colorizer = get_pc_colorizer(sde, "reverse_diffusion", "langevin", snr=0.15, eps=eps)
+    zero_launches()
+    start = time.perf_counter()
+    rgb, _ = colorizer(torch.Generator(device="cuda").manual_seed(2), get_score_fn(sde, model, continuous=True), gray)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = read_launches()
+    expected = expect_launches("colorizer", launches, PER_FORWARD_UNCOND_PATH, 2 * PROJECTED_STEPS)
+    gray_err = (decouple(rgb)[..., 0] - decouple(gray)[..., 0]).abs().max().item()
+    scale = rgb.abs().max().item()
+    finite = bool(torch.isfinite(rgb).all())
+    colorize = dict(path="float32 unconditional NCSN++ PC colorizer", steps=PROJECTED_STEPS, wall_s=seconds,
+                    ms_per_score_eval=seconds / (2 * PROJECTED_STEPS) * 1e3, gray_max_abs_err=gray_err,
+                    scale=scale, launches=launches)
+    ok = finite and gray_err <= GRAY_TOL * scale
+    phase("main", t, f"colorizer (reverse_diffusion + langevin, snr 0.15), the same model and batch in"
+                     f" grayscale, {PROJECTED_STEPS} steps: {seconds:.3f} s, {colorize['ms_per_score_eval']:.3f} ms"
+                     f" per evaluation; finite {finite}; gray channel against the input's max abs err"
+                     f" {gray_err:.3e} (tol {GRAY_TOL:.0e} of the output's largest magnitude, {scale:.3f});"
+                     f" launches {launches} (expected {expected})"
+                     f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("colorizer: the gray channel moved or the samples are not finite")
+    del model
+
+    # inpaint_hf on the Haar DDPM with kernels 1-3
+    t = time.perf_counter()
+    on, off = texture64_haar_multiscale_unconditional_block_config(), texture64_haar_multiscale_unconditional_config()
+    calls = haar_sites(on)
+    per_forward = per_name(calls)
+    tails, blocks = check_haar_sites(calls)
+    phase("kernel", t, f"texture64 Haar DDPM: kernel calls per forward {dict(calls)}; kernels 1-3 against plain at"
+                       f" its {len(tails)} tail and {len(blocks)} block sites no earlier phase checked")
+    t = time.perf_counter()
+    t64 = datasets_dir(texture64_sr_cmde_test_config())
+    images = next(PKLDataModule(t64).test_iterator(BATCH))["x"]
+    dc = haar_forward(torch.from_numpy(images).cuda())[..., :3].contiguous()
+    model_on = init_model_random(on, seed=on.seed, device="cuda")
+    model_off = create_model(off, "cuda")
+    model_off.load_state_dict(model_on.state_dict())
+    per_step = evaluations_per_step(on)
+    outs = {}
+    for label, config, m in (("on", on, model_on), ("off", off, model_off)):
+        config.model.num_scales = PYRAMID_SHORT
+        zero_launches()
+        with torch.no_grad():
+            outs[label] = create_task(config, m).inpaint_hf(torch.Generator(device="cuda").manual_seed(3), m, dc)[0]
+        outs[label + "_launches"] = read_launches()
+    expect_launches("inpaint_hf, kernels on", outs["on_launches"], per_forward, per_step * PYRAMID_SHORT)
+    expect_launches("inpaint_hf, kernels off", outs["off_launches"], {}, 0)
+    agree_err = rel_err(outs["on"], outs["off"])
+    agree = dict(path="float32 texture64 Haar DDPM inpaint_hf, kernels 1-3 on vs off", tol=CHAIN_AGREE_TOL,
+                 sample_rel_err=agree_err, launches=outs["on_launches"])
+    phase("agreement", t, f"{agree['path']}: {PYRAMID_SHORT}-step rel err {agree_err:.3e} (tol"
+                          f" {CHAIN_AGREE_TOL:.0e}), launches {outs['on_launches']}"
+                          f" {'ok' if agree_err <= CHAIN_AGREE_TOL else 'FAIL'}")
+    if agree_err > CHAIN_AGREE_TOL:
+        raise RuntimeError("inpaint_hf: kernels 1-3 disagree with the unfused path")
+
+    t = time.perf_counter()
+    on.model.num_scales = PROJECTED_STEPS
+    zero_launches()
+    start = time.perf_counter()
+    with torch.no_grad():
+        coeffs, _ = create_task(on, model_on).inpaint_hf(torch.Generator(device="cuda").manual_seed(4), model_on, dc)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = read_launches()
+    evals = per_step * PROJECTED_STEPS
+    expected = expect_launches("inpaint_hf", launches, per_forward, evals)
+    dc_err = (coeffs[..., :3] - dc).abs().max().item()
+    finite = bool(torch.isfinite(coeffs).all()) and tuple(coeffs.shape) == (BATCH, 32, 32, 12)
+    hf = dict(path="float32 texture64 Haar DDPM inpaint_hf, fused_block + fused_tail", steps=PROJECTED_STEPS,
+              wall_s=seconds, ms_per_score_eval=seconds / evals * 1e3, dc_max_abs_err=dc_err, launches=launches,
+              per_forward=per_forward)
+    ok = finite and dc_err <= DC_TOL
+    phase("main", t, f"inpaint_hf, texture64 Haar DDPM B={BATCH} (32x32x12), DC band of test batch 0,"
+                     f" {PROJECTED_STEPS} steps: {seconds:.3f} s, {hf['ms_per_score_eval']:.3f} ms per evaluation;"
+                     f" finite {finite}; DC against the input max abs err {dc_err:.3e} (tol {DC_TOL:.0e});"
+                     f" launches {launches} (expected {expected}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("inpaint_hf: the DC band moved or the coefficients are wrong")
+    return [inpaint, colorize, hf], agree
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2699,6 +3168,12 @@ def main() -> int:
     main_ncsnpp_train, main_kxsr_viz = run_ncsnpp_trainer(PER_FORWARD_NCSNPP_PATH)
     new_paths += [main_toy, main_paired, main_ncsnpp_train, main_kxsr_viz]
 
+    # ---- the other samplers: the ODE, bits/dim, inpainting and colorization
+    main_ode = run_ode()
+    main_bpd = run_bpd()
+    projected_paths, agree_haar = run_projected()
+    new_paths += [main_ode, main_bpd] + projected_paths
+
     bf16 = torch.bfloat16
     tail_line = per_forward_row(
         "gn_silu_conv3x3", "conditional_score_diffusion_tpu_torch/csrc/gn_silu_conv3x3.cu",
@@ -2801,7 +3276,7 @@ def main() -> int:
         k["launches_other_paths"] = {p["path"]: p["launches"][name] for p in new_paths if p["launches"][name]}
     paths = [main_new, main_tail, main_ncsnpp, main_train, main_train_off, main_harness] + new_paths
     agree += [agree_train, agree_texture64] + agree_estimators + [agree_uncond, agree_pyramid] + agree_sequential
-    agree.append(agree_direct)
+    agree += [agree_direct, agree_haar]
     print(json.dumps({"kernels": kernels, "paths": paths, "agreement": agree}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

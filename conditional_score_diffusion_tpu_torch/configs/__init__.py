@@ -7,7 +7,14 @@ from .celeba_sr import (
     celeba_sr_deep_config,
     celeba_sr_interpolation_config,
 )
-from .extra import cifar10_vp_config, texture160_unconditional_ncsnpp_config, unconditional_pkl_config
+from .extra import (
+    cifar10_vp_config,
+    haar_multiscale_unconditional_config,
+    texture160_unconditional_ncsnpp_config,
+    texture64_haar_multiscale_unconditional_block_config,
+    texture64_haar_multiscale_unconditional_config,
+    unconditional_pkl_config,
+)
 from .multiscale import (
     hq160_sequential_bicubic_master_config,
     hq160_sequential_haar_master_config,
@@ -47,6 +54,7 @@ __all__ = [
     "celeba_sr_interpolation_config",
     "cifar10_vp_config",
     "df2k_config",
+    "haar_multiscale_unconditional_config",
     "hq160_direct_8x_config",
     "hq160_sequential_bicubic_master_config",
     "hq160_sequential_config",
@@ -69,6 +77,8 @@ __all__ = [
     "texture160_sr_vscmde_config",
     "texture160_sr_vscmde_slow_config",
     "texture160_unconditional_ncsnpp_config",
+    "texture64_haar_multiscale_unconditional_block_config",
+    "texture64_haar_multiscale_unconditional_config",
     "texture64_haar_scale_config",
     "texture64_multiscale_master_block_config",
     "texture64_multiscale_master_config",

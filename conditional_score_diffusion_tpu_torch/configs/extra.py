@@ -1,8 +1,11 @@
-"""Two recipes of the JAX package's `configs/extra.py`, copied: the
-unconditional VE NCSN++ on a `.pklv4` image list (`unconditional_pkl_config`)
-and CIFAR-10 under a VP or sub-VP SDE (`cifar10_vp_config`, DDPM++
-continuous on the ``ncsnpp`` graph); and the texture160 variant of the
-first (`texture160_unconditional_ncsnpp_config`)."""
+"""Three recipes of the JAX package's `configs/extra.py`, copied: the
+unconditional VE NCSN++ on a `.pklv4` image list (`unconditional_pkl_config`),
+CIFAR-10 under a VP or sub-VP SDE (`cifar10_vp_config`, DDPM++
+continuous on the ``ncsnpp`` graph) and the unconditional DDPM of Haar
+coefficients (`haar_multiscale_unconditional_config`); the texture160
+variant of the first (`texture160_unconditional_ncsnpp_config`), and the
+texture64 variant of the last with its fused twin
+(`texture64_haar_multiscale_unconditional_config`, `..._block_config`)."""
 
 from __future__ import annotations
 
@@ -50,6 +53,58 @@ def texture160_unconditional_ncsnpp_config() -> Config:
     config = unconditional_pkl_config(128)
     config.data.dataset = "texture160"
     config.data.base_dir = "datasets"
+    return config
+
+
+def haar_multiscale_unconditional_config(image_size: int = 64) -> Config:
+    """Unconditional generation in Haar space (JAX
+    `configs/extra.py:haar_multiscale_unconditional_config`): a VE DDPM,
+    nf=128, ch_mult (1, 1, 2, 2), attention at 16 and 8, on the 12 Haar
+    channels of a level-0 image at ``image_size // 2``.  Its datamodule,
+    ``haar_multiscale``, waits for ROADMAP.md section 1, item 12."""
+    config = base_config()
+    config.training.lightning_module = "haar_multiscale"
+    config.training.sde = "vesde"
+    config.training.visualization_callback = "haar_multiscale"
+
+    data = config.data
+    data.dataset = "celebA"
+    data.datamodule = "haar_multiscale"
+    data.image_size = image_size
+    data.level = 0
+    data.effective_image_size = image_size // 2
+    data.shape = [12, image_size // 2, image_size // 2]
+    data.num_channels = 12
+
+    model = config.model
+    model.sigma_max = float(math.sqrt(math.prod(data.shape)))
+    model.sigma_min = 5e-3
+    model.name = "ddpm"
+    image_model_defaults(model)
+    model.nf = 128
+    model.ch_mult = (1, 1, 2, 2)
+    model.attn_resolutions = (16, 8)
+    model.input_channels = 12
+    model.output_channels = 12
+    model.num_scales = 1000
+    return config
+
+
+def texture64_haar_multiscale_unconditional_config() -> Config:
+    """`haar_multiscale_unconditional_config(64)` on the in-repo texture64
+    split (32x32x12 coefficients); nothing else changed."""
+    config = haar_multiscale_unconditional_config(64)
+    config.data.dataset = "texture64"
+    config.data.base_dir = "datasets"
+    return config
+
+
+def texture64_haar_multiscale_unconditional_block_config() -> Config:
+    """The same with ``fused_block`` and ``fused_tail`` on: kernels 1-3 at
+    16x16 and below."""
+    config = texture64_haar_multiscale_unconditional_config()
+    config.model.fused_block = True
+    config.model.fused_tail = True
     return config
 
 

@@ -1,6 +1,7 @@
 """Degradations on host numpy batches, copied from the JAX package's
-`data/degradations.py`: `bicubic_resize_np`, `sr_degrade` and
-`random_square_mask` (the inpainting mask the offline pipeline re-rolls)."""
+`data/degradations.py`: `bicubic_resize_np`, `sr_degrade`, `grayscale`
+(the colorizer's input) and `random_square_mask` (the inpainting mask the
+offline pipeline re-rolls)."""
 
 from __future__ import annotations
 
@@ -30,6 +31,12 @@ def sr_degrade(batch: np.ndarray, scale: int) -> np.ndarray:
     H = batch.shape[1]
     lr = bicubic_resize_np(batch, H // scale)
     return nearest_upsample_np(lr, scale)
+
+
+def grayscale(batch: np.ndarray) -> np.ndarray:
+    """ITU-R 601 luma of an NHWC RGB batch, as one channel."""
+    w = np.array([0.299, 0.587, 0.114], dtype=batch.dtype)
+    return (batch @ w)[..., None]
 
 
 def bicubic_lq_images(images, scale: int):

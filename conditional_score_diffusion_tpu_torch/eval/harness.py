@@ -10,7 +10,9 @@ the EMA weights, clamp to [0, 1], save PNGs under
 the split), and compute PSNR, SSIM and consistency per draw, then their mean
 over the draws and the diversity of the stacked draws x 255 per batch; the
 lists, one value per batch, are pickled to
-``test_metrics/{first}_{last}.pkl`` as JAX writes them.  LPIPS needs
+``test_metrics/{first}_{last}.pkl`` as JAX writes them, with the bits/dim
+of `eval/bpd.py` under ``"bpd"`` where ``eval.enable_bpd`` is set and the
+recipe names no ``training.conditioning_approach``.  LPIPS needs
 weights that are not in the repo and is skipped with the JAX package's note
 (ROADMAP.md section 1, item 10).
 
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from ..data import create_datamodule
 from ..data.pkl_datasets import PKLDataModule
 from ..models import create_model
 from ..ops.resize import full_float32
@@ -40,6 +43,7 @@ from ..sampling.pc import NoiseSource
 from ..sde import build_sde
 from ..training.checkpoint import load_eval_weights
 from ..training.schedules import is_decreasing_variance, sigma_y_at_step
+from .bpd import evaluate_bpd
 from .metrics import LPIPS_NOTE, get_consistency_fn, mean_psnr, mean_ssim
 from .metrics import diversity as diversity_metric
 
@@ -95,8 +99,6 @@ def run_test(
     del log_path
     device = torch.device(device)
     evalc = config.eval
-    if evalc.get("enable_bpd", False) and "conditioning_approach" not in config.training:
-        raise NotImplementedError("bits/dim (eval.enable_bpd) is not ported: ROADMAP.md section 1, item 8")
     base = output_dir(config)
     samples_dir = os.path.join(base, "images", "samples")
     gt_x_dir = os.path.join(base, "images", "x_gt")
@@ -206,6 +208,11 @@ def run_test(
 
         images_tested += x_gt.shape[0]
         print(f"[test] batch {batch_idx} done ({images_tested} images)", flush=True)
+
+    # bits/dim over the recipe's split, for an unconditional model (JAX's condition)
+    if evalc.get("enable_bpd", False) and "conditioning_approach" not in config.training:
+        with full_float32():
+            results["bpd"] = evaluate_bpd(config, model, create_datamodule(config), device=device)
 
     metrics_dir = os.path.join(base, "test_metrics")
     Path(metrics_dir).mkdir(parents=True, exist_ok=True)

@@ -64,12 +64,21 @@ def fused_block_candidate_policy(h_shape, out_ch: int) -> bool:
     return max(H, W) <= 10
 
 
+def carries_grad(*tensors) -> bool:
+    """Whether a gradient must flow through a call on ``tensors`` (grad mode
+    on and one of them requires it): the kernels have no backward, so such
+    a call takes the plain version, as `ops/upfirdn.py` does for the FIR."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 def fused_block_applicable(x, act, train: bool, skip, out_ch: int, enabled: bool) -> bool:
     """Gate of the block kernel (JAX `fused_block_applicable`): on, eval,
-    no skip, SiLU, and the shape gate on ``x``."""
+    no skip, SiLU, and the shape gate on ``x``; and no gradient through
+    ``x`` (`carries_grad`)."""
     return (
         enabled
         and not train
+        and not carries_grad(x)
         and skip is None
         and act is F.silu
         and fused_block_candidate_policy(x.shape, out_ch)
@@ -79,7 +88,7 @@ def fused_block_applicable(x, act, train: bool, skip, out_ch: int, enabled: bool
 def fused_split_block_applicable(x, skip, act, train: bool, out_ch: int, enabled: bool) -> bool:
     """Gate of the split kernel (JAX `fused_split_block_applicable`): the
     same on the shape of the concat cat(x, skip)."""
-    if not enabled or train or skip is None or act is not F.silu:
+    if not enabled or train or skip is None or act is not F.silu or carries_grad(x, skip):
         return False
     concat_shape = tuple(x.shape[:-1]) + (x.shape[-1] + skip.shape[-1],)
     return fused_block_candidate_policy(concat_shape, out_ch)
@@ -326,7 +335,8 @@ INV_SQRT2 = float(1.0 / math.sqrt(2.0))
 class FusedResblock(nn.Module):
     """What the DDPM and NCSN++ resblocks share: the norm1 -> act -> dropout
     -> conv1 tail, which `ops.fused_tail.gn_silu_conv3x3` computes in eval
-    mode where the JAX gate :func:`fused_tail_candidate_policy` holds and the
+    mode, on a call that carries no gradient (:func:`carries_grad`), where
+    the JAX gate :func:`fused_tail_candidate_policy` holds and the
     activation is SiLU (``fused_tail``), and the whole block, which
     `ops.fused_block.resblock_fused` (no skip) or `resblock_fused_split` (on
     cat(x, skip)) computes in eval mode where
@@ -345,6 +355,7 @@ class FusedResblock(nn.Module):
         if (
             self.fused_tail
             and not self.training
+            and not carries_grad(h)
             and self.act is F.silu
             and fused_tail_candidate_policy(h.shape, self.out_ch)
         ):

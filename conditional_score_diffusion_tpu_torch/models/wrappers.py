@@ -27,6 +27,11 @@ def _map(fn, tree):
     return {k: fn(v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
 
 
+def _requires_grad(inputs) -> bool:
+    values = inputs.values() if isinstance(inputs, dict) else (inputs,)
+    return any(v.requires_grad for v in values)
+
+
 def get_model_fn(
     model: torch.nn.Module,
     train: bool = False,
@@ -34,7 +39,9 @@ def get_model_fn(
     params: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> Callable:
     """``model_fn(inputs, labels)``: the raw network (``inputs`` a tensor or a
-    dict of tensors), in train or eval mode, without autograd in eval.
+    dict of tensors), in train or eval mode, without autograd in eval
+    unless an input requires a gradient (the likelihood's divergence
+    differentiates the eval network with respect to x).
 
     The mode is set around each call and the module's own mode restored
     after it, so a score built from a live model (an eval loss, a sampler
@@ -63,7 +70,7 @@ def get_model_fn(
         mode = model.training
         model.train(train)
         try:
-            with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+            with torch.set_grad_enabled((train or _requires_grad(inputs)) and torch.is_grad_enabled()):
                 if params is None:
                     out = model(inputs, labels)
                 else:

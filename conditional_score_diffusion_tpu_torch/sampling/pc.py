@@ -1,6 +1,8 @@
 """Predictor-corrector samplers (JAX `sampling/pc.py`): the unconditional
-`get_pc_sampler` / `get_sampling_fn` and the conditional
-`get_pc_conditional_sampler` / `get_conditional_sampling_fn`.
+`get_pc_sampler` / `get_sampling_fn` (whose ``ode`` method is
+`sampling/ode.py`), the conditional `get_pc_conditional_sampler` /
+`get_conditional_sampling_fn`, and the inpainter `get_pc_inpainter` /
+`get_inpainting_fn`.
 
 The JAX samplers are one `lax.scan` each; here each is a Python loop over
 the timestep grid that stays on the device (no host sync per step).
@@ -13,8 +15,10 @@ draws is the JAX sampler's order of use: the prior, then for each step
 (conditional, fresh-perturbation mode) the corrector's y, the corrector,
 the predictor's y and the predictor; (``use_path`` mode) y at T + tau once,
 then for each step the backward-kernel draw, the predictor and the
-corrector.  A corrector draws once for each of its ``n_steps``, a
-predictor once (``none``: never).
+corrector; (inpainter) the prior, then for each step the corrector's, the
+projection's, the predictor's and the projection's again.  A corrector
+draws once for each of its ``n_steps``, a predictor once (``none``:
+never), a projection once.
 
 ``show_evolution=True`` keeps every step's state, as the JAX scan stacks it:
 ``info["evolution"]`` is x after each step, shape ``(p_steps, *shape)``,
@@ -255,7 +259,8 @@ def get_sampling_fn(
     denoise="default",
 ):
     """Unconditional sampling function of a recipe (``sampling.method``
-    ``pc``; the ODE sampler waits for ROADMAP.md section 1, item 8).
+    ``pc``, or ``ode``: the probability-flow ODE sampler, which ignores
+    ``show_evolution`` as JAX does).
 
     Returns ``fn(noise, model, show_evolution=False) -> (samples, info)``.
     """
@@ -264,7 +269,15 @@ def get_sampling_fn(
     )
     method = config.sampling.method.lower()
     if method == "ode":
-        raise NotImplementedError("the ODE sampler is not ported (ROADMAP.md section 1, item 8)")
+        from .ode import get_ode_sampler
+
+        ode_sampler = get_ode_sampler(sde=sde, shape=shape, denoise=denoise, eps=eps)
+
+        def ode_fn(noise, model, show_evolution: bool = False):
+            score_fn = get_score_fn(sde, model, conditional=False, train=False, continuous=config.training.continuous)
+            return ode_sampler(noise, score_fn)
+
+        return ode_fn
     if method != "pc":
         raise ValueError(f"Sampler name {config.sampling.method!r} unknown.")
 
@@ -284,5 +297,81 @@ def get_sampling_fn(
     def fn(noise, model, show_evolution: bool = False):
         score_fn = get_score_fn(sde, model, conditional=False, train=False, continuous=config.training.continuous)
         return pc(noise, score_fn, show_evolution=show_evolution)
+
+    return fn
+
+
+def get_pc_inpainter(
+    sde,
+    predictor: str,
+    corrector: str,
+    snr: float,
+    n_steps: int = 1,
+    probability_flow: bool = False,
+    denoise: bool = True,
+    eps: float = 1e-5,
+) -> Callable:
+    """PC inpainter with a projection onto the known pixels after the
+    corrector and after the predictor of each of ``sde.N`` steps.
+
+    Returns ``inpainter(noise, score_fn, data, mask, show_evolution=False)
+    -> (samples, info)``; ``mask`` is 1 on known pixels and broadcasts
+    against ``data``.  With ``denoise`` the samples are the last
+    projection's mean: the predictor's x off the mask, the data's marginal
+    mean on it.
+    """
+    predictor_fn = get_predictor(predictor)
+    corrector_fn = get_corrector(corrector)
+
+    def project(noise, x, data, mask, vec_t):
+        masked_mean, std = sde.marginal_prob(data, vec_t)
+        masked = masked_mean + batch_mul(std, noise(x.shape))
+        x_proj = x * (1.0 - mask) + masked * mask
+        x_mean_proj = x * (1.0 - mask) + masked_mean * mask
+        return x_proj, x_mean_proj
+
+    def inpainter(noise, score_fn, data, mask, show_evolution: bool = False):
+        noise = _as_noise(noise)
+        B = data.shape[0]
+        x = data * mask + sde.prior_sampling(noise, tuple(data.shape)) * (1.0 - mask)
+        x_mean = x
+        timesteps = torch.linspace(sde.T, eps, sde.N, device=data.device)
+        frames = []
+        for i in range(sde.N):
+            vec_t = timesteps[i].expand(B)
+            x, _ = corrector_fn(noise, x, vec_t, sde=sde, score_fn=score_fn, snr=snr, n_steps=n_steps)
+            x, x_mean = project(noise, x, data, mask, vec_t)
+            x, _ = predictor_fn(noise, x, vec_t, sde=sde, score_fn=score_fn, probability_flow=probability_flow)
+            x, x_mean = project(noise, x, data, mask, vec_t)
+            if show_evolution:
+                frames.append(x)
+        samples = x_mean if denoise else x
+        info = {"evolution": _stacked(frames)} if show_evolution else {}
+        return samples, info
+
+    return inpainter
+
+
+def get_inpainting_fn(config, sde, eps, n_steps_each: int = 1):
+    """Inpainting function of a recipe: its predictor, corrector, snr and
+    noise removal, ``sde.N`` steps.
+
+    Returns ``fn(noise, model, data, mask, show_evolution=False) ->
+    (samples, info)``.
+    """
+    inpainter = get_pc_inpainter(
+        sde=sde,
+        predictor=config.sampling.predictor.lower(),
+        corrector=config.sampling.corrector.lower(),
+        snr=config.sampling.snr,
+        n_steps=n_steps_each,
+        probability_flow=config.sampling.probability_flow,
+        denoise=config.sampling.noise_removal,
+        eps=eps,
+    )
+
+    def fn(noise, model, data, mask, show_evolution: bool = False):
+        score_fn = get_score_fn(sde, model, conditional=False, train=False, continuous=config.training.continuous)
+        return inpainter(noise, score_fn, data, mask, show_evolution=show_evolution)
 
     return fn

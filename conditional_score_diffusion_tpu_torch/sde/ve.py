@@ -72,6 +72,14 @@ class VESDE:
             z = z + self.data_mean.expand(shape)
         return z
 
+    def prior_logp(self, z: torch.Tensor) -> torch.Tensor:
+        """Log-density of each sample of ``z`` under the prior N(0, sigma_max^2 I)."""
+        dims = math.prod(z.shape[1:])
+        return (
+            -dims / 2.0 * math.log(2 * math.pi * self.sigma_max**2)
+            - torch.sum(z**2, dim=tuple(range(1, z.ndim))) / (2 * self.sigma_max**2)
+        )
+
     def discretize(self, x, t):
         """SMLD (NCSN) discretization: ``(f, G)``."""
         timestep = (t * (self.N - 1) / self.T).to(torch.int64)

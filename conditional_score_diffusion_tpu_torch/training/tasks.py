@@ -7,7 +7,8 @@ Ported: ``base`` (an unconditional model), ``conditional`` (CDE/CDiffE/CMDE),
 the scheduled sigma_y), its older single-sigma variant
 ``deprecated_conditional_decreasing_variance``, and the Haar tasks
 ``haar_conditional_decreasing_variance`` (VS-CMDE with the Haar helpers)
-and ``haar_multiscale`` (a model of Haar coefficients).
+and ``haar_multiscale`` (a model of Haar coefficients, whose
+``inpaint_hf`` fills the detail bands given the DC band).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 
 from .. import registry
 from ..ops import haar as haar_ops
-from ..sampling import get_conditional_sampling_fn, get_sampling_fn
+from ..sampling import get_conditional_sampling_fn, get_inpainting_fn, get_sampling_fn
 from ..sde import build_sde
 from .schedules import sigma_y_at_step
 
@@ -52,6 +53,10 @@ class BaseTask:
     def sampling_fn(self, shape, **overrides) -> Callable:
         """``fn(noise, model, show_evolution=False) -> (samples, info)``."""
         return get_sampling_fn(self.config, self.sde, shape, self.sampling_eps, **overrides)
+
+    def inpainting_fn(self, n_steps_each: int = 1) -> Callable:
+        """``fn(noise, model, data, mask, show_evolution=False) -> (samples, info)``."""
+        return get_inpainting_fn(self.config, self.sde, self.sampling_eps, n_steps_each)
 
 
 @register_trainable(name="conditional")
@@ -135,8 +140,13 @@ class HaarMultiScaleTask(BaseTask):
 
         return image_fn
 
-    def inpaint_hf(self, *args, **kwargs):
-        """The detail bands given the DC band by masked PC inpainting."""
-        raise NotImplementedError(
-            "HaarMultiScaleTask.inpaint_hf needs get_pc_inpainter, which is not ported (ROADMAP.md section 1, item 8)"
-        )
+    def inpaint_hf(self, noise, model, dc_coefficients, n_steps_each: int = 1):
+        """The detail bands given the DC band (NHWC, C channels) by masked PC
+        inpainting: the state is the DC band in the first C channels and
+        zeros in the 3C detail channels, the mask 1 on the DC.  Returns
+        ``(coefficients, info)``."""
+        B, H, W, C = dc_coefficients.shape
+        full = torch.cat([dc_coefficients, dc_coefficients.new_zeros(B, H, W, 3 * C)], dim=-1)
+        mask = torch.zeros_like(full)
+        mask[..., :C] = 1.0
+        return self.inpainting_fn(n_steps_each)(noise, model, full, mask)

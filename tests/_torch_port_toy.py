@@ -234,3 +234,43 @@ def jax_unconditional_draws(key, p_steps, shape, predictor, corrector, c_steps=1
         if predictor.removeprefix("conditional_") != "none":
             draws.append(jax.random.normal(rp, shape))
     return draws
+
+
+def jax_projected_draws(key, steps, shape, predictor, corrector, c_steps=1):
+    """The draws of the JAX inpainter and colorizer (`sampling/pc.py:
+    get_pc_inpainter`, `sampling/controllable.py:get_pc_colorizer`): the
+    prior, then each step the 5-way split's corrector draws ``fold_in(rc,
+    i)``, the projection's ``rmc``, the predictor's ``rp`` and the
+    projection's ``rmp`` (``none`` draws nothing)."""
+    rng, prior = jax.random.split(key)
+    draws = [jax.random.normal(prior, shape)]
+    for _ in range(steps):
+        rng, rc, rmc, rp, rmp = jax.random.split(rng, 5)
+        if corrector.removeprefix("conditional_") != "none":
+            draws += [jax.random.normal(jax.random.fold_in(rc, i), shape) for i in range(c_steps)]
+        draws.append(jax.random.normal(rmc, shape))
+        if predictor.removeprefix("conditional_") != "none":
+            draws.append(jax.random.normal(rp, shape))
+        draws.append(jax.random.normal(rmp, shape))
+    return draws
+
+
+def unconditional_toy_pair(name, sde_name="vesde", seed=7, out_scale=1.0):
+    """(JAX config, port config, JAX module and params, port model) of the
+    16px unconditional toy ``name`` (`ncsnpp_toy_config`: ``ncsnpp`` with
+    FIR, or ``ddpm``) under ``sde_name``, the same weights on both sides,
+    the output conv scaled by ``out_scale``."""
+    from conditional_score_diffusion_tpu.configs import base as jax_base
+    from conditional_score_diffusion_tpu_torch.configs import base as torch_base
+    from conditional_score_diffusion_tpu_torch.models import create_model
+    from conditional_score_diffusion_tpu_torch.models.convert import flax_to_state_dict
+
+    jconfig, tconfig = ncsnpp_toy_config(jax_base, name=name), ncsnpp_toy_config(torch_base, name=name)
+    for c in (jconfig, tconfig):
+        c.training.sde = sde_name
+        c.model.input_channels = c.model.output_channels = 3  # the DDPM reads them
+    module, params = jax_init_params(jconfig, seed=seed)
+    params["conv_out"] = {k: v * np.float32(out_scale) for k, v in params["conv_out"].items()}
+    model = create_model(tconfig, device="cpu")
+    model.load_state_dict(flax_to_state_dict(params), strict=True)
+    return jconfig, tconfig, module, params, model

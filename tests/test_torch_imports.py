@@ -69,5 +69,7 @@ def test_port_imports_without_jax():
         "configs.texture64_sr_dv", "sampling.pc", "sampling.predictors", "sampling.correctors",
         "ops.haar", "eval.multiscale", "configs.multiscale", "training.callbacks", "models.ddpm",
         "data.pkl_datasets", "data.synthetic", "models.fcn", "configs.toy", "eval.toy",
+        "sampling.odeint", "sampling.ode", "sampling.likelihood", "sampling.controllable", "eval.bpd",
+        "data.degradations",
     ):
         assert f"conditional_score_diffusion_tpu_torch.{name}" in names, name

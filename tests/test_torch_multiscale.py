@@ -254,8 +254,8 @@ def test_deprecated_task_anneals_only_sigma_max_y():
 
 def test_haar_multiscale_task(tmp_path):
     """``haar_multiscale``: images go to Haar coefficients before the loss,
-    the sampler returns coefficients or images, and ``inpaint_hf`` raises
-    naming ROADMAP item 8."""
+    the sampler returns coefficients or images, and ``inpaint_hf`` (over an
+    SDE cut to 3 steps) returns coefficients whose DC band is its input."""
     from conditional_score_diffusion_tpu.configs.extra import haar_multiscale_unconditional_config
     from conditional_score_diffusion_tpu_torch.models import create_model
     from conditional_score_diffusion_tpu_torch.ops.haar import haar_forward
@@ -263,6 +263,7 @@ def test_haar_multiscale_task(tmp_path):
     jc = haar_multiscale_unconditional_config(16)
     c = port_config(jc)
     c.model.nf, c.model.ch_mult, c.model.num_res_blocks, c.model.attn_resolutions = 8, (1, 2), 1, (4,)
+    c.model.num_scales = 3
     model = create_model(c, "cpu")
     task, jtask = create_task(c, model), jax_create_task(jc, None)
     assert type(task).__name__ == type(jtask).__name__ == "HaarMultiScaleTask"
@@ -275,8 +276,10 @@ def test_haar_multiscale_task(tmp_path):
     images, _ = task.sampling_fn(shape, space="image", p_steps=2, corrector="none")(gen, model)
     assert coeffs.shape == shape and images.shape == (2, 16, 16, 3)
     assert torch.allclose(haar_forward(images), coeffs, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        task.inpaint_hf(None, model, torch.zeros(2, 8, 8, 3))
+    dc = torch.from_numpy(task.prepare_batch(x)[..., :3])
+    filled, info = task.inpaint_hf(torch.Generator().manual_seed(1), model, dc)
+    assert filled.shape == shape and info == {} and torch.isfinite(filled).all()
+    assert torch.equal(filled[..., :3], dc) and filled[..., 3:].abs().max() > 0
 
 
 def test_cli_runs_a_toy_master(tmp_path, monkeypatch):

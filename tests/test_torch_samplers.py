@@ -98,10 +98,16 @@ def test_unconditional_sampler_matches_jax(run):
 
 
 def test_sampling_fn_names_the_ode_item():
+    """``sampling.method = "ode"`` samples through the probability-flow ODE
+    (`tests/test_torch_ode.py` holds it against JAX); an unknown method
+    raises."""
     config = ncsnpp_toy_config(torch_base)
     config.sampling.method = "ode"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        get_sampling_fn(config, *build_sde(config)[:1], (1, 16, 16, 3), 1e-5)
+    model = create_model(config, device="cpu")
+    samples, info = get_sampling_fn(config, *build_sde(config)[:1], (1, 16, 16, 3), 1e-3)(
+        torch.Generator().manual_seed(0), model
+    )
+    assert samples.shape == (1, 16, 16, 3) and torch.isfinite(samples).all() and info == {"nfe": -1}
     config.sampling.method = "flow"
     with pytest.raises(ValueError, match="flow"):
         get_sampling_fn(config, *build_sde(config)[:1], (1, 16, 16, 3), 1e-5)
