@@ -67,32 +67,32 @@ Phases, each printing its own line with its seconds:
    8x SR degradation), the full-width ddpm_paired with seeded N(0, 0.02)
    weights, bfloat16 compute through `get_score_fn(compute_dtype=...)` ->
    `get_conditional_score_fn` -> `get_pc_conditional_sampler` (as the JAX
-   bench composes it), fused_block and fused_tail on, 50 of the recipe's
+   bench composes it), fused_block and fused_tail on, 20 of the recipe's
    1000 steps (its time per evaluation does not depend on the count).  Each
    kernel's launch counter, set to 0 just before, must read exactly its
-   count per forward x 2 x 50 just after.
+   count per forward x 2 x 20 just after.
 6. main (the float32 tail path): the same batch and weights, float32,
-   fused_tail only, through `get_conditional_sampling_fn`, 25 steps; the
-   tail's counter must read 17 x 2 x 25.
+   fused_tail only, through `get_conditional_sampling_fn`, 10 steps; the
+   tail's counter must read 17 x 2 x 10.
 7. main (the NCSN++ path): the DF2K direct 4x recipe on texture160
    (`texture160_kxsr_ncsnpp`): the first 8 test pairs (the recipe's eval
    batch of 32 cut to 8), x 160x160 and y the committed 40x40 LQ images;
    the full-width ncsnpp_KxSR (nf=64, ch_mult (1,1,2,2,4,4), 32.1 M
    parameters) with seeded N(0, 0.02) weights; the multi-speed VE SDE with
    sigma_y as the VS-CMDE schedule leaves it (sigma_y,max 138.6); float32
-   through `get_conditional_sampling_fn`, 50 steps; the FIR counters must
-   read 15 x 2 x 50 each.  Then one backward through the same model at
+   through `get_conditional_sampling_fn`, 20 steps; the FIR counters must
+   read 15 x 2 x 20 each.  Then one backward through the same model at
    B=1 (`ncsnpp_backward`): finite gradients equal by norm to those with
    every FIR call on its plain version, and the FIR kernels launched only
    on the input pyramid, none in the backward.
 8. main (the trainer path): `Trainer(texture160_sr_cmde_conv3x3)
-   .fit(max_steps=20)`: the texture160 train split, batch 16, float32,
+   .fit(max_steps=10)`: the texture160 train split, batch 16, float32,
    dropout 0.1, the DDPM init, every 3x3 stride-1 conv and its input
    gradient on kernel 4; train_loss finite, one eval_loss on the EMA (4
    batches of the test split: the val split is not sent to the card),
    a checkpoint restored exactly into a new trainer; kernel 4's counter
-   exactly (89 + 88) x 20 + 72 x 4, the tail's 17 x 4, every other 0.
-   Then the same for 5 steps with the policy off (every counter 0).  Each
+   exactly (89 + 88) x 10 + 72 x 4, the tail's 17 x 4, every other 0.
+   Then the same for 3 steps with the policy off (every counter 0).  Each
    prints ms per step and images/s over the sustained window, the peak
    memory, and one step split by CUDA events.
 9. main (the --mode test harness, new): `run_test` with the recipe
@@ -112,12 +112,12 @@ Phases, each printing its own line with its seconds:
    on its texture160 recipe with the flagship U-Net at full width (CDE:
    `ddpm_paired_SR3`, one VE SDE, y clean), seeded N(0, 0.02) weights,
    texture160 test batch 0 (B=8): the bfloat16 sampler with fused_block and
-   fused_tail, 20 steps, sigma_y for VS-CMDE as its schedule leaves it at
+   fused_tail, 10 steps, sigma_y for VS-CMDE as its schedule leaves it at
    ``reach_target_steps``, after an untimed 2-step run; kernels 1-3 counted
    exactly (calls per forward on the meta device, `forward_calls`, which
    must be the flagship's, at the sites phase 3 checked).  For CDE and
    VS-CMDE first the kernels on against off as in phase 4.  Then
-   `Trainer.fit(5)`, B=16, float32, kernel 4 on, first checked against its
+   `Trainer.fit(3)`, B=16, float32, kernel 4 on, first checked against its
    plain version at each train-step shape phase 3 did not check (CDE's
    3-channel output conv: forward 96->3, dx 3->96): finite train_loss,
    kernel 4 counted exactly, VS-CMDE's logged sigma_min_y / sigma_max_y at
@@ -127,15 +127,15 @@ Phases, each printing its own line with its seconds:
    BigGAN resblocks), B=8, float32, seeded weights: the FIR kernels against
    their plain versions at the path's six shapes (`FIR_REL_TOL`) and on a
    3-step sample (1e-4) whose FIR counters read their calls per forward
-   x 2 x 3; `get_sampling_fn` with reverse_diffusion + langevin, 20 steps,
-   the FIR counters at their calls per forward x 2 x 20; 3-step runs of
+   x 2 x 3; `get_sampling_fn` with reverse_diffusion + langevin, 10 steps,
+   the FIR counters at their calls per forward x 2 x 10; 3-step runs of
    ancestral_sampling and ald; `show_evolution` on 5 steps, (5, 8, 128,
    128, 3), its last frame the final x of the same run without frames
    (1e-6), consecutive frames different; `Trainer.fit(3)` through
    `unpaired_PKLDataset` at B=8 (every FIR call carries a gradient and
    takes its plain version: counters 0).
 12. main (DDPM++ under VP and sub-VP, new): `cifar10_vp_config` at 32px,
-   B=64, seeded weights: euler_maruyama + none, 20 steps (after an untimed
+   B=64, seeded weights: euler_maruyama + none, 10 steps (after an untimed
    2-step run); 3-step runs with
    langevin and (VP) ancestral_sampling (sub-VP refuses it, as JAX does);
    one Langevin step's size against (snr |z| / |score|)^2 2 alpha with
@@ -154,7 +154,7 @@ Phases, each printing its own line with its seconds:
 14. main (the celebA-HQ-160 sequential chains on texture160, new): scales
    40 (nf 96), 80 (nf 96) and 160 (nf 64), random weights read from EMA
    files: the Haar chain (ddpm_paired on the detail bands) kernels on
-   against off over 3 steps a scale, then its _block variant over 20 steps
+   against off over 3 steps a scale, then its _block variant over 10 steps
    a scale, ms per score evaluation per scale; the bicubic chain
    (ddpm_2xSR) on per-scale LQ/GT files made from the texture160 test split
    with the port's bicubic resize, its _block variant over 3 steps a scale.
@@ -183,7 +183,7 @@ Phases, each printing its own line with its seconds:
 18. main (the NCSN++ DF2K direct 4x trainer, new): `texture160_kxsr_ncsnpp`
    at full width (nf 64, ch_mult (1,1,2,2,4,4), attention at 20/10/5),
    B=16, float32, the texture160 train split with its 4x LQ file written
-   to a temp dir: `Trainer.fit(20)` with ``CSDT_PROFILE_DIR`` set (the
+   to a temp dir: `Trainer.fit(12)` with ``CSDT_PROFILE_DIR`` set (the
    trace of steps 3-5 written there); finite losses and gradient norms,
    the EMA moved, the Fourier W unchanged, a checkpoint restored exactly,
    the FIR downsample kernel counted exactly on the raw input's pyramid
@@ -191,7 +191,7 @@ Phases, each printing its own line with its seconds:
    plain version); ms per step, the window's device time by kernel, and
    the plain FIR's share of it (`profile_train_step.py`:
    `recording_upfirdn`, `plain_fir_ms`).  Then its ``KxSR`` callback once
-   at ``visualization_p_steps = 20``: FIR kernels 6-7 counted exactly, the
+   at ``visualization_p_steps = 10``: FIR kernels 6-7 counted exactly, the
    grid against the same callback with the plain FIR at 1e-4.
    Every phase's trainer must have recorded no callback failure.
 19. main (the probability-flow ODE sampler, new): JAX's analytic test on
@@ -206,17 +206,17 @@ Phases, each printing its own line with its seconds:
    scale, else by norm at 1e-3; ms per evaluation and seconds.
 20. main (bits/dim, new): JAX's analytic N(0, 1) test (within 0.1);
    `evaluate_bpd` on the same NCSN++, the texture160 test split through
-   `unpaired_PKLDataset` at 128px, one batch of 2 (cut from the recipe's
+   `unpaired_PKLDataset` at 128px, one batch of 1 (cut from the recipe's
    eval batch and JAX's 8 batches): bpd and z finite, every FIR counter 0
    (every call carries a gradient), score evaluations, seconds, peak
    memory; the reverse-mode divergence against `torch.func.jvp` on the
    plain path at one (x, t), 1e-4 relative; one divergence of the
-   texture64 Haar DDPM with fused_block and fused_tail on (B = 2): kernels
+   texture64 Haar DDPM with fused_block and fused_tail on (B = 1): kernels
    1-3 at 0 launches, the value the knobs-off one's at 1e-5.
-21. main (inpainting and colorization, new; every SDE cut from 1000 to 20
+21. main (inpainting and colorization, new; every SDE cut from 1000 to 10
    steps): `get_inpainting_fn` on the NCSN++, texture160 test batch 0 (B =
    8, 128px), a random square mask of coverage 0.25: the known pixels the
-   data's at 1e-6, the FIR counters at 6 x 2 x 20; `get_pc_colorizer`
+   data's at 1e-6, the FIR counters at 6 x 2 x 10; `get_pc_colorizer`
    (reverse_diffusion + langevin, snr 0.15) on the batch's grayscale: its
    decoupled gray channel the input's at 1e-4 of the output's largest
    magnitude, the FIR counters exact;
@@ -224,11 +224,34 @@ Phases, each printing its own line with its seconds:
    (DDPM nf 128, 32x32x12 coefficients, random weights) with the DC band of
    texture64 test batch 0 (B = 8): kernels 1-3 against plain at its sites
    no earlier phase checked, kernels on against off over 3 steps (1e-4,
-   launches exact), then 20 steps with the output's DC the input's at 1e-5
-   and every counter at its calls per forward x 2 x 20.
-22. result: a JSON line of the kernels (with each one's launches on the
-   paths of phases 10-21), the nvidia-smi line, and last
+   launches exact), then 10 steps with the output's DC the input's at 1e-5
+   and every counter at its calls per forward x 2 x 10.
+22. main (the paper's other inverse problems, new; `configs/inverse_problems.py`):
+   the texture twins of the inpainting and colorization recipes (128px,
+   nf 96, on the texture160 GT images), the edges2shoes recipe (64px, nf
+   128, on a PNG tree of texture64 images and their 4x SR degradation) and
+   the MRI->PET recipes (96px one-channel slices, nf 96; [96, 96, 16]
+   volumes through ddpm3D_paired), on trees written to a temp dir.  Kernels
+   1-3 per forward of each _block twin on the meta device against
+   `INVERSE_TWINS`, each against its plain version at the sites no earlier
+   phase checked (down to 3x3), each timed; per 2-D twin, kernels on
+   against off (`agreement`, float32 1e-4), then the conditional PC sampler
+   at B = 8 for 20 of its 1000 steps, every counter exact; `Trainer.fit(3)`
+   of all five twins at their recipes' train batches (25, 25, 50, 32, 4
+   volumes), finite losses, kernels 1-3 at 0 under the gradient; `run_test`
+   on the inpainting twin (test batch 0 of 25, draws 1 and 2, 20 steps),
+   then the evaluation pipeline on its tree, whose masks re-rolled from
+   the PNG numbers must be the batch's; the ``paired3D`` callback on the
+   3-D twin at its 100 steps; ``--mode compute_dataset_statistics`` on the
+   texture64 recipe (200 batches), its mean.npy (32, 32, 9) against a
+   float64 host recomputation at 1e-5.
+23. result: a JSON line of the kernels (with each one's launches on the
+   paths of phases 10-22), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
+
+The step counts of the paths without a quality band (5-8, 10-12, 14, 18,
+21) are cut short to keep the whole run near 850 s; the time per
+evaluation or step does not depend on them.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -242,6 +265,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -280,6 +304,15 @@ from conditional_score_diffusion_tpu_torch.configs import (  # noqa: E402
 from conditional_score_diffusion_tpu_torch.configs.texture160_kxsr_ncsnpp import (  # noqa: E402
     train_config as texture160_kxsr_ncsnpp_train_config,
 )
+from conditional_score_diffusion_tpu_torch.configs.inverse_problems import (  # noqa: E402
+    texture160_colorization_cmde_block_config,
+    texture160_inpainting_cmde_block_config,
+    texture64_i2i_cmde_block_config,
+    texture_mri_to_pet_3d_config,
+    texture_mri_to_pet_slices_block_config,
+    write_texture64_paired,
+    write_texture_mri_to_pet,
+)
 from conditional_score_diffusion_tpu_torch.configs.multiscale import (  # noqa: E402
     texture160_sequential_master_config,
     write_texture160_sequential_data,
@@ -294,9 +327,12 @@ from conditional_score_diffusion_tpu_torch.data.pkl_datasets import (  # noqa: E
     iter_test_batches,
     load_pkl_images,
 )
+from conditional_score_diffusion_tpu_torch.data import create_datamodule, statistics  # noqa: E402
 from conditional_score_diffusion_tpu_torch.eval import bpd as bpd_eval  # noqa: E402
 from conditional_score_diffusion_tpu_torch.eval import multiscale  # noqa: E402
 from conditional_score_diffusion_tpu_torch.eval.harness import load_model, output_dir, run_test  # noqa: E402
+from conditional_score_diffusion_tpu_torch.eval import pipeline as eval_pipeline  # noqa: E402
+from conditional_score_diffusion_tpu_torch.eval.metrics import ConsistencyUnavailable, get_consistency_fn  # noqa: E402
 from conditional_score_diffusion_tpu_torch.eval.metrics import psnr as psnr_fn  # noqa: E402
 from conditional_score_diffusion_tpu_torch.eval.toy import sample_toy  # noqa: E402
 from conditional_score_diffusion_tpu_torch.eval.pipeline import load_images, numbered, run_evaluation_pipeline  # noqa: E402
@@ -334,7 +370,7 @@ from conditional_score_diffusion_tpu_torch.sde import VESDE, VPSDE, batch_mul, b
 from conditional_score_diffusion_tpu_torch.sde.factory import is_conditional_config  # noqa: E402
 from conditional_score_diffusion_tpu_torch.training import callbacks  # noqa: E402
 from conditional_score_diffusion_tpu_torch.training.tasks import create_task  # noqa: E402
-from conditional_score_diffusion_tpu_torch.ops.haar import haar_forward  # noqa: E402
+from conditional_score_diffusion_tpu_torch.ops.haar import get_hf_coefficients, haar_forward  # noqa: E402
 from conditional_score_diffusion_tpu_torch.training.checkpoint import (  # noqa: E402
     CheckpointManager,
     load_eval_weights,
@@ -429,8 +465,8 @@ PER_FORWARD_NCSNPP_PATH = {"fir_upsample2": 15, "fir_downsample2": 15}
 # raw input's pyramid (160 to 10, 6 channels) needs none, so only its 5
 # downsamples launch a kernel; every other call takes its plain version.
 NCSNPP_GRAD_FORWARD = {"fir_upsample2": 0, "fir_downsample2": 5}
-STEPS = 50  # the bfloat16 block path and the NCSN++ path, cut from their 1000 to keep the run short
-TAIL_PATH_STEPS = 25  # the float32 tail path, cut from 1000 likewise
+STEPS = 20  # the bfloat16 block path and the NCSN++ path, cut from their 1000 to keep the run short
+TAIL_PATH_STEPS = 10  # the float32 tail path, cut from 1000 likewise
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Kernels on against off, bfloat16 compute (see `agreement`).
 BF16_AGREE_TOL = 2e-2
@@ -445,8 +481,8 @@ BF16_AGREE_TOL = 2e-2
 TRAIN_BATCH = 16
 CONV_PER_TRAIN_STEP = (89, 88)
 CONV_PER_EVAL_FORWARD = 72
-TRAIN_STEPS = 20  # Trainer.fit on the new path
-TRAIN_OFF_STEPS = 5  # the same with the policy off
+TRAIN_STEPS = 10  # Trainer.fit on the new path
+TRAIN_OFF_STEPS = 3  # the same with the policy off
 TRAIN_AGREE_STEPS = 3
 EVAL_BATCHES = 4  # the recipe's eval.max_val_batches
 # Kernel 4 on against off in the train step: loss 1e-5, each gradient by
@@ -507,10 +543,10 @@ ESTIMATORS = [
     ("sr3", texture160_sr_cde_config),
 ]
 ESTIMATOR_AGREEMENT = ("sr3", "ours_DV")
-ESTIMATOR_STEPS, ESTIMATOR_TRAIN_STEPS = 20, 5
+ESTIMATOR_STEPS, ESTIMATOR_TRAIN_STEPS = 10, 3
 WARMUP_STEPS = 2  # an untimed sample before each estimator's and VP's timed one
-UNCOND_BATCH, UNCOND_STEPS, UNCOND_SHORT, UNCOND_EVOLUTION, UNCOND_TRAIN_STEPS = 8, 20, 3, 5, 3
-VP_BATCH, VP_STEPS, VP_SHORT = 64, 20, 3
+UNCOND_BATCH, UNCOND_STEPS, UNCOND_SHORT, UNCOND_EVOLUTION, UNCOND_TRAIN_STEPS = 8, 10, 3, 5, 3
+VP_BATCH, VP_STEPS, VP_SHORT = 64, 10, 3
 FIR_AGREE_TOL = 1e-4
 EVOLUTION_TOL = 1e-6  # the same kernels on the same inputs: only a library's choice of algorithm may differ
 # FIR calls of one unconditional NCSN++ forward (128px, B=8; BigGAN down at
@@ -535,7 +571,7 @@ DC_ONLY_TOL = 1e-4
 # (ddpm_2xSR) over `BICUBIC_STEPS`; kernels on against off over
 # `PYRAMID_SHORT` steps per scale (final images, 1e-4 of their largest
 # magnitude); the direct 8x ddpm_KxSR sampler over `DIRECT8X_STEPS`.
-CHAIN_STEPS, BICUBIC_STEPS, DIRECT8X_STEPS = 20, 3, 5
+CHAIN_STEPS, BICUBIC_STEPS, DIRECT8X_STEPS = 10, 3, 5
 CHAIN_AGREE_TOL = 1e-4
 # Kernels 1-3 calls per forward of each scale of the chains' _block variants
 # (counted on the meta device by `forward_calls`): the pyramid's (both
@@ -594,9 +630,9 @@ PAIRED_IMAGES = 8
 PAIRED_JAX = [38.542591932595236, 38.441330877546804, 38.41601926013445]
 PAIRED_BAND = (37.966647356758834, 38.966647356758834)
 # The NCSN++ DF2K direct 4x trainer (phase 18).
-NCSNPP_TRAIN_STEPS = 20
+NCSNPP_TRAIN_STEPS = 12
 PROFILE_STEPS = 3  # CSDT_PROFILE_STEPS: the trace covers steps 3-5 (10 steps wrote 229 MiB)
-KXSR_VIZ_STEPS = 20  # the KxSR callback's training.visualization_p_steps
+KXSR_VIZ_STEPS = 10  # the KxSR callback's training.visualization_p_steps
 KXSR_GRID_TOL = 1e-4  # the callback's grid, FIR kernels against the plain FIR
 
 # The other samplers (phases 19-21), float32, seeded N(0, 0.02) weights.
@@ -615,13 +651,13 @@ ODE_ANALYTIC_SHAPE, ODE_ANALYTIC_TOL = (2048, 1), 0.08
 ODE_AGREE_TOL, ODE_NORM_TOL = 1e-4, 1e-3
 # Phase 20: bits/dim.  JAX's analytic N(0, 1) test (within 0.1 of
 # log2(sqrt(2 pi e)) + 8); `evaluate_bpd` on the texture160 test split at
-# 128px cut to one batch (`BPD_MAX_BATCHES`, of JAX's 8) of two
+# 128px cut to one batch (`BPD_MAX_BATCHES`, of JAX's 8) of one image
 # (`BPD_BATCH`, of the recipe's eval batch), every FIR call on its plain
 # version (all carry a gradient); the reverse-mode divergence against
 # `torch.func.jvp` at one (x, t), 1e-4 relative; kernels 1-3 off under a
-# gradient on the Haar DDPM (B = 2), the divergence equal to the one with
+# gradient on the Haar DDPM (B = 1), the divergence equal to the one with
 # the knobs off at 1e-5.
-BPD_BATCH, BPD_MAX_BATCHES = 2, 1
+BPD_BATCH, BPD_MAX_BATCHES = 1, 1
 DIV_JVP_TOL, DIV_KNOBS_TOL = 1e-4, 1e-5
 # Phase 21: inpainting and colorization, every SDE cut from 1000 steps to
 # `PROJECTED_STEPS`: the NCSN++ on texture160 test batch 0 (B = 8) with a
@@ -632,8 +668,51 @@ DIV_JVP_TOL, DIV_KNOBS_TOL = 1e-4, 1e-5
 # channel is held at `GRAY_TOL` of the output's largest magnitude: the
 # round trip through the orthonormal basis rounds relative to the whole
 # pixel, and the random network's chroma reaches ~1e3.
-PROJECTED_STEPS, MASK_COVERAGE = 20, 0.25
+PROJECTED_STEPS, MASK_COVERAGE = 10, 0.25
 KNOWN_TOL, GRAY_TOL, DC_TOL = 1e-6, 1e-4, 1e-5
+
+# Phase 22: the paper's other inverse problems on their texture twins
+# (`configs/inverse_problems.py`), each at its recipe's full width.  Kernels
+# 1-3 per forward of each ``_block`` twin at B=8 (`forward_calls` on the
+# meta device; tests/test_torch_inverse_recipes.py counts them again): with
+# the block kernels on, the tail keeps the blocks at 16x16 (12x12) and the
+# whole-block kernels take the levels at 10x10 and below.  Inpainting and
+# colorization share the 128px U-Net (nf 96, ch_mult (1,1,2,2,3,3)); the
+# image-to-image U-Net is 64px (nf 128, ch_mult (1,1,2,2)); the MRI->PET
+# slices' is 96px of one channel (nf 96), down to 3x3.  The 3-D twin's
+# volumes reach no kernel.
+SITES_128 = {
+    ("gn_silu_conv3x3", 16, 192): 5,
+    ("resblock_fused", 8, 192, 0, 288): 1,  # NIN shortcut
+    ("resblock_fused", 8, 288, 0, 288): 1,
+    ("resblock_fused", 4, 288, 0, 288): 4,
+    ("resblock_fused_split", 4, 288, 288, 288): 3,
+    ("resblock_fused_split", 8, 288, 288, 288): 2,
+    ("resblock_fused_split", 8, 288, 192, 288): 1,  # a 15-channel group straddles channel 288
+}
+SITES_I2I = {
+    ("gn_silu_conv3x3", 16, 256): 5,
+    ("resblock_fused", 8, 256, 0, 256): 4,
+    ("resblock_fused_split", 8, 256, 256, 256): 3,
+}
+SITES_MRI = {
+    ("gn_silu_conv3x3", 12, 192): 5,
+    ("resblock_fused", 6, 192, 0, 288): 1,
+    ("resblock_fused", 6, 288, 0, 288): 1,
+    ("resblock_fused", 3, 288, 0, 288): 4,
+    ("resblock_fused_split", 3, 288, 288, 288): 3,
+    ("resblock_fused_split", 6, 288, 288, 288): 2,
+    ("resblock_fused_split", 6, 288, 192, 288): 1,
+}
+# (label, recipe, whether its data is a tree the phase writes, sites)
+INVERSE_TWINS = [
+    ("inpainting", texture160_inpainting_cmde_block_config, False, SITES_128),
+    ("colorization", texture160_colorization_cmde_block_config, False, SITES_128),
+    ("image-to-image", texture64_i2i_cmde_block_config, True, SITES_I2I),
+    ("MRI->PET slices", texture_mri_to_pet_slices_block_config, True, SITES_MRI),
+]
+INVERSE_STEPS, INVERSE_TRAIN_STEPS = 20, 3  # each sampler cut from 1000 steps
+INVERSE_HARNESS_DRAWS, PAIRED3D_STEPS, STATS_BATCHES, STATS_TOL = [1, 2], 100, 200, 1e-5
 
 WRAPPERS = {
     "gn_silu_conv3x3": fused_tail.gn_silu_conv3x3,
@@ -2493,9 +2572,9 @@ def run_paired_callback(per_forward_tail):
 def run_ncsnpp_trainer(per_forward_fir):
     """The DF2K direct 4x NCSN++ trainer at full width (B=16, float32, the
     texture160 train split with its LQ file written to a temp dir):
-    `Trainer.fit(20)` with the profiler window on (steps 3-5), then a
+    `Trainer.fit(12)` with the profiler window on (steps 3-5), then a
     checkpoint restored exactly, the device split of the window with the
-    plain FIR's share, and the ``KxSR`` callback once at 20 steps, its FIR
+    plain FIR's share, and the ``KxSR`` callback once at 10 steps, its FIR
     launches counted and its grid held against the plain FIR's."""
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2987,6 +3066,305 @@ def run_projected():
     return [inpaint, colorize, hf], agree
 
 
+# ---- the paper's other inverse problems -----------------------------------------
+
+
+def twin_inputs(config, device, batch=BATCH):
+    """Empty ``{'x', 'y'}`` of a twin's shapes, channels last."""
+    d = config.data
+    shape = lambda s: (batch, *s[1:], s[0])  # noqa: E731
+    return {"x": torch.empty(shape(d.shape_x), device=device), "y": torch.empty(shape(d.shape_y), device=device)}
+
+
+def twin_batch(config, batch=BATCH):
+    """The twin's first test batch of ``batch`` on the card, x and y."""
+    dm = create_datamodule(config)
+    dm.setup()
+    host = next(dm.test_iterator(batch))
+    return {k: torch.from_numpy(host[k]).cuda() for k in ("x", "y")}
+
+
+def earlier_sites():
+    """Sites of kernels 1-3 an earlier phase checked at B=8 with 32 groups."""
+    done = {("gn_silu_conv3x3", h, c) for h, c, *_ in TAIL_SHAPES}
+    done |= {("gn_silu_conv3x3", h, c) for h, c in NCSNPP_TAIL_SHAPES + CHAIN_TAIL_SHAPES}
+    done |= {tuple(b[:5]) for b in BLOCK_SHAPES + CHAIN_BLOCK_SHAPES}
+    done |= set(haar_sites(texture64_haar_multiscale_unconditional_block_config()))
+    return done
+
+
+def check_inverse_sites(new):
+    """Kernels 1-3 against plain at each site in ``new`` (B=8, 32 groups),
+    float32 (1e-4) and bfloat16 (2e-2), with and without temb; each timed
+    once in float32, the twins' type, beside its plain version, the library
+    yardstick and the bound.  Returns per-site rows."""
+    rows = []
+    for site in sorted(new):
+        name, h, *chans = site
+        if name == "gn_silu_conv3x3":
+            (c,) = chans
+            for dtype in (torch.float32, torch.bfloat16):
+                for with_temb in (False, True):
+                    x, w, gamma, beta, bias, temb = tail_inputs(h, c, dtype, seed=h * c + 7)
+                    temb = temb if with_temb else None
+                    err = check_close(
+                        f"inverse tail {BATCH}x{h}x{h}x{c} {dname(dtype)} temb={with_temb}",
+                        fused_tail.gn_silu_conv3x3(x, w, gamma, beta, GROUPS, bias=bias, temb=temb),
+                        fused_tail.gn_silu_conv3x3_plain(x, w, gamma, beta, GROUPS, bias=bias, temb=temb), dtype,
+                    )
+                    if dtype != torch.float32 or with_temb:
+                        continue
+                    flops, nbytes = tail_work(h, c, dtype)
+                    bound_ms, bound_by = bound(flops, nbytes, dtype)
+                    row = dict(
+                        shape=f"{BATCH}x{h}x{h}x{c}", dtype=dname(dtype), site="inverse problems", max_abs_err=err,
+                        gflop=flops / 1e9, bound_ms=bound_ms, bound_by=bound_by,
+                        ms=time_ms(lambda: fused_tail.gn_silu_conv3x3(x, w, gamma, beta, GROUPS, bias=bias)),
+                        plain_ms=time_ms(
+                            lambda: fused_tail.gn_silu_conv3x3_plain(x, w, gamma, beta, GROUPS, bias=bias)),
+                        library_ms=time_ms(lambda: conv3x3_nhwc(x, w, bias)),
+                    )
+                    print(f"    time: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, cuDNN conv only"
+                          f" {row['library_ms']:.4f} ms{ratio(row)}, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+                    rows.append(row)
+            continue
+        ca, cb, cout = chans
+        label = f"inverse {name} {BATCH}x{h}x{h}x{ca}" + (f"+{cb}" if cb else "") + f"->{cout}"
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_temb in (True, False):
+                x, skip, kw = block_inputs(h, ca, cb, cout, dtype, seed=h * (ca + cb) + 7, with_temb=with_temb)
+                err = check_close(f"{label} {dname(dtype)} temb={with_temb}",
+                                  block_call(x, skip, kw), block_call(x, skip, kw, plain=True), dtype)
+                if dtype != torch.float32 or not with_temb:
+                    continue
+                flops, nbytes = block_work(h, ca, cb, cout, dtype)
+                bound_ms, bound_by = bound(flops, nbytes, dtype)
+                xin = x if skip is None else torch.cat([x, skip], dim=-1)
+                ws = kw["shortcut_w"]
+
+                def library():  # no single PyTorch call computes the block
+                    conv3x3_nhwc(conv3x3_nhwc(xin, kw["w0"]), kw["w1"])
+                    if ws is not None:
+                        torch.matmul(xin, ws)
+
+                row = dict(
+                    kernel=name, shape=f"{BATCH}x{h}x{h}x{ca}" + (f"+{cb}" if cb else "") + f"->{cout}",
+                    dtype=dname(dtype), site="inverse problems", max_abs_err=err, gflop=flops / 1e9,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    ms=time_ms(lambda: block_call(x, skip, kw)),
+                    plain_ms=time_ms(lambda: block_call(x, skip, kw, plain=True)),
+                    library_ms=time_ms(library),
+                )
+                print(f"    time: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, cuDNN convs + matmul"
+                      f" {row['library_ms']:.4f} ms{ratio(row)}, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+                rows.append(row)
+    return rows
+
+
+def run_inverse_harness(per_forward, directory):
+    """`run_test` on the inpainting _block twin (test batch 0 of 25, draws
+    1 and 2, 20 steps) from seeded random weights, then the pipeline
+    (``--mode evaluation_pipeline``'s function) on the tree it wrote: its
+    masks, re-rolled from the PNG numbers, must be the harness batch's."""
+    config = datasets_dir(texture160_inpainting_cmde_block_config())
+    config.eval.base_log_dir = os.path.join(directory, "evaluation")
+    config.eval.draws = list(INVERSE_HARNESS_DRAWS)
+    config.eval.p_steps = INVERSE_STEPS
+    model = init_model_random(config, seed=config.seed, device="cuda")
+    config.model.checkpoint_path = save_ema(os.path.join(directory, "inpainting_ema.pt"), 0, model.state_dict())
+    del model
+    records = []
+    zero_launches()
+    t = time.perf_counter()
+    results = run_test(config, device="cuda", draw_records=records)
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    expected = expect_launches("inpainting harness", launches, per_forward, 2 * INVERSE_STEPS * len(config.eval.draws))
+    means = {m: v[0] for m, v in results[0.15].items()}
+    ok = sorted(means) == ["consistency", "diversity", "psnr", "ssim"] and all(math.isfinite(v) for v in means.values())
+    result = dict(path="float32 --mode test harness, inpainting _block twin", steps=INVERSE_STEPS,
+                  batch=config.eval.batch_size, wall_s=wall, seconds_per_draw=[r["seconds"] for r in records],
+                  ms_per_score_eval=[r["seconds"] / (2 * INVERSE_STEPS) * 1e3 for r in records], means=means,
+                  launches=launches)
+    phase("main", t, f"{result['path']}: test batch 0 of {result['batch']}, draws {config.eval.draws},"
+                     f" {INVERSE_STEPS} steps: " + ", ".join(f"{m} {v:.5f}" for m, v in sorted(means.items()))
+          + f"; {wall:.3f} s wall, ms per score evaluation {['%.3f' % v for v in result['ms_per_score_eval']]};"
+          f" launches {launches} (expected {expected}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"inpainting harness: metrics {means} missing or not finite")
+
+    t = time.perf_counter()
+    rerolled, real = [], eval_pipeline.random_square_mask
+
+    def recording(*args, **kwargs):
+        rerolled.append(real(*args, **kwargs))
+        return rerolled[-1]
+
+    eval_pipeline.random_square_mask = recording
+    try:
+        pipe = cli.evaluation_pipeline(config, device="cuda")[0.15]
+    finally:
+        eval_pipeline.random_square_mask = real
+    dm = create_datamodule(config)
+    dm.setup()
+    harness_mask = next(dm.test_iterator())["mask"]
+    same = len(rerolled) == 1 and np.array_equal(rerolled[0], harness_mask)
+    entries = [v for d in pipe["per_draw"].values() for v in d.values()] + [pipe["diversity"]]
+    ok = same and pipe["n_images"] == config.eval.batch_size and all(math.isfinite(v) for v in entries)
+    result["pipeline"] = dict(per_draw=pipe["per_draw"], diversity=pipe["diversity"], skipped=pipe["skipped"],
+                              masks_equal=same)
+    phase("main", t, "evaluation pipeline on the inpainting tree: " + ", ".join(
+        f"{k} psnr {v['psnr']:.4f} ssim {v['ssim']:.5f} consistency {v['consistency']:.4f}"
+        for k, v in sorted(pipe["per_draw"].items())) + f", diversity {pipe['diversity']:.6f}; masks re-rolled"
+          f" from the PNG numbers equal the harness batch's: {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("inpainting pipeline: masks re-rolled wrong or metrics not finite")
+    return result
+
+
+def run_paired3d(config, directory):
+    """The ``paired3D`` callback once on the 3-D twin's EMA (seeded random
+    weights) at its own 100 steps: 2 validation volumes, finite frames and
+    ``val_rec_loss_pc``; no kernel launches."""
+    with tempfile.TemporaryDirectory(dir=directory) as log_path:
+        config = copy.deepcopy(config)
+        config.training.visualization_freq = PAIRED3D_STEPS
+        trainer = Trainer(config, log_path)
+        model = init_model_random(config, seed=config.seed, device="cuda")
+        with torch.no_grad():
+            for name, shadow in trainer.state.ema.params.items():
+                shadow.copy_(model.state_dict()[name])
+        del model
+        callback = callbacks.get_callbacks(config)[-1]
+        result, images = fire_callback("float32 paired3D callback, MRI->PET 3-D twin", trainer, callback,
+                                       PAIRED3D_STEPS, {name: 0 for name in WRAPPERS})
+        rec = [v for tag, v, _ in read_scalars(os.path.join(log_path, "scalars.jsonl")) if tag == "val_rec_loss_pc"]
+    names = ("axial", "coronal", "sagittal")
+    tags = [f"paired3D_{n}" for n in names] + [f"paired_video_dim_{n}/filmstrip" for n in names]
+    ok = len(rec) == 1 and math.isfinite(rec[0]) and sorted(images) == sorted(tags)
+    ok = ok and all(np.isfinite(images[k]).all() for k in images)
+    result.update(steps=PAIRED3D_STEPS, val_rec_loss_pc=rec, frames={k: list(v.shape) for k, v in images.items()},
+                  ms_per_score_eval=result["wall_s"] / (2 * PAIRED3D_STEPS) * 1e3)
+    print(f"[main] {result['wall_s']:.3f} s {result['path']}: {PAIRED3D_STEPS} steps on 2 volumes"
+          f" {tuple(config.data.shape_x)}, {result['ms_per_score_eval']:.3f} ms per score evaluation;"
+          f" val_rec_loss_pc {rec}; frames {result['frames']}; launches {result['launches']}"
+          f" {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError("paired3D callback: frames or val_rec_loss_pc missing or not finite")
+    return result
+
+
+def run_statistics(directory):
+    """``main --mode compute_dataset_statistics`` in-process on the texture64
+    recipe, 200 train batches of 64: the train split is the committed
+    texture64 test file, linked in as the train file of a dataset directory
+    under ``directory`` (the train file is not sent to the card).  Each
+    batch the mode reduces on the card is also reduced on the host in
+    float64 (a recorder around its `get_hf_coefficients`), and the saved
+    mean is held against that."""
+    config = texture64_sr_cmde_config()
+    d = os.path.join(directory, "stats", config.data.dataset)
+    os.makedirs(d)
+    os.symlink(os.path.join(REPO, "datasets", "texture64", "texture64-test.pklv4"),
+               os.path.join(d, "texture64-train.pklv4"))
+    base = os.path.dirname(d)
+    host = {"sum": 0.0, "count": 0}
+    real = statistics.get_hf_coefficients
+
+    def recording(x):
+        hf = get_hf_coefficients(x.detach().cpu().double())
+        host["sum"], host["count"] = host["sum"] + hf.sum(dim=0), host["count"] + hf.shape[0]
+        return real(x)
+
+    statistics.get_hf_coefficients = recording
+    zero_launches()
+    t = time.perf_counter()
+    try:
+        cli.main(["--mode", "compute_dataset_statistics", "--config", "texture64_sr_cmde", "--data_path", base])
+        torch.cuda.synchronize()
+    finally:
+        statistics.get_hf_coefficients = real
+    seconds = time.perf_counter() - t
+    mean = np.load(os.path.join(base, "datasets_mean", f"{config.data.dataset}_{config.data.image_size}", "mean.npy"))
+    want = (host["sum"] / host["count"]).numpy()
+    err = float(np.abs(mean - want).max() / np.abs(want).max())
+    count = host["count"]
+    ok = mean.shape == (32, 32, 9) and mean.dtype == np.float32 and bool(np.isfinite(mean).all()) and err <= STATS_TOL
+    ok = ok and count == STATS_BATCHES * config.training.batch_size
+    result = dict(path="--mode compute_dataset_statistics, texture64", batches=STATS_BATCHES, images=count,
+                  seconds=seconds, shape=list(mean.shape), rel_err_vs_float64_host=err, launches=read_launches())
+    phase("main", t, f"compute_dataset_statistics on texture64 ({STATS_BATCHES} batches, {count} images):"
+                     f" {seconds:.3f} s (with the host's float64 copy); mean.npy {mean.shape} {mean.dtype} range"
+                     f" [{mean.min():.5f}, {mean.max():.5f}]; against the float64 host reduction of the same batches"
+                     f" rel err {err:.3e} (tol {STATS_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("compute_dataset_statistics: mean.npy wrong")
+    return result
+
+
+def run_inverse_problems():
+    """Phase 22: the paper's other inverse problems on their twins."""
+    t = time.perf_counter()
+    directory = tempfile.mkdtemp(prefix="inverse_problems_")
+    try:
+        src = os.path.join(REPO, "datasets")
+        write_texture64_paired(directory, src)
+        write_texture_mri_to_pet(directory, src, volumetric=False)
+        write_texture_mri_to_pet(directory, src, volumetric=True)
+        twins = [(label, recipe(directory if written else src), want) for label, recipe, written, want in INVERSE_TWINS]
+        volumes = texture_mri_to_pet_3d_config(directory)
+        try:  # the image-to-image consistency compares OpenCV's Canny edges
+            get_consistency_fn("image-to-image")
+            import cv2
+
+            canny = f"measured (cv2 {cv2.__version__})"
+        except ConsistencyUnavailable as e:
+            canny = f"skipped: {e}"
+        phase("setup", t, f"twin trees under {directory}: texture64 image-to-image PNGs, MRI->PET .npy slices and"
+                          f" volumes; image-to-image consistency: {canny}")
+
+        t = time.perf_counter()
+        for label, config, want in twins:
+            calls = forward_calls(config, BATCH, twin_inputs(config, "meta"))
+            if dict(calls) != want:
+                raise RuntimeError(f"{label}: kernel sites {dict(calls)}, expected {want}")
+        new = {k for _, _, want in twins for k in want} - earlier_sites()
+        rows = check_inverse_sites(new)
+        phase("kernel", t, f"inverse-problem twins: kernels 1-3 against plain at the {len(new)} sites no earlier"
+                           f" phase checked: {sorted(new)}")
+
+        paths, agree = [], []
+        for label, config, want in twins:
+            batch = twin_batch(config)
+            model = init_model_random(config, seed=config.seed, device="cuda")
+            off = copy.deepcopy(config)
+            off.model.fused_tail = off.model.fused_block = False
+            agree.append(agreement(f"float32 {label} _block twin", config, off, model, batch, None,
+                                   REL_TOL[torch.float32]))
+            sde, eps = sampler_sde(config)
+            shape = tuple(batch["x"].shape)
+            sample = get_conditional_sampling_fn(config, sde, shape, eps, p_steps=INVERSE_STEPS)
+            gen = torch.Generator(device="cuda").manual_seed(config.seed)
+            with torch.no_grad():
+                paths.append(run_sampler(f"float32 {label} _block twin", lambda: sample(gen, model, batch["y"])[0],
+                                         per_name(want), INVERSE_STEPS, shape=shape))
+            del model
+
+        zeros = {name: 0 for name in WRAPPERS}
+        for label, config in [(lbl, c) for lbl, c, _ in twins] + [("MRI->PET volumes", volumes)]:
+            config = copy.deepcopy(config)
+            config.training.log_freq, config.training.eval_freq = 1, 10**9
+            paths.append(run_trainer(f"float32 {label} trainer, B={config.training.batch_size}", config,
+                                     INVERSE_TRAIN_STEPS, zeros, evals=0, restore=False))
+
+        paths.append(run_inverse_harness(per_name(SITES_128), directory))
+        paths.append(run_paired3d(volumes, directory))
+        paths.append(run_statistics(directory))
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    return paths, agree, rows
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3174,6 +3552,10 @@ def main() -> int:
     projected_paths, agree_haar = run_projected()
     new_paths += [main_ode, main_bpd] + projected_paths
 
+    # ---- the paper's other inverse problems on their texture twins
+    inverse_paths, agree_inverse, inverse_rows = run_inverse_problems()
+    new_paths += inverse_paths
+
     bf16 = torch.bfloat16
     tail_line = per_forward_row(
         "gn_silu_conv3x3", "conditional_score_diffusion_tpu_torch/csrc/gn_silu_conv3x3.cu",
@@ -3225,7 +3607,7 @@ def main() -> int:
         kernels.append(k)
     for k in kernels:
         k["per_shape"] = [
-            r for r in tail_rows + harness_tail_rows + ncsnpp_tail_rows + block_rows + fir_rows
+            r for r in tail_rows + harness_tail_rows + ncsnpp_tail_rows + block_rows + fir_rows + inverse_rows
             if r.get("kernel", "gn_silu_conv3x3") == k["name"]
         ]
     f32 = conv_sums(conv_rows, torch.float32)
@@ -3276,7 +3658,7 @@ def main() -> int:
         k["launches_other_paths"] = {p["path"]: p["launches"][name] for p in new_paths if p["launches"][name]}
     paths = [main_new, main_tail, main_ncsnpp, main_train, main_train_off, main_harness] + new_paths
     agree += [agree_train, agree_texture64] + agree_estimators + [agree_uncond, agree_pyramid] + agree_sequential
-    agree += [agree_direct, agree_haar]
+    agree += [agree_direct, agree_haar] + agree_inverse
     print(json.dumps({"kernels": kernels, "paths": paths, "agreement": agree}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

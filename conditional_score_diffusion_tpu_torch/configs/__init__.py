@@ -10,10 +10,22 @@ from .celeba_sr import (
 from .extra import (
     cifar10_vp_config,
     haar_multiscale_unconditional_config,
+    mri_to_pet_config,
     texture160_unconditional_ncsnpp_config,
     texture64_haar_multiscale_unconditional_block_config,
     texture64_haar_multiscale_unconditional_config,
     unconditional_pkl_config,
+)
+from .inverse_problems import (
+    inpainting_interpolation_config,
+    i2i_interpolation_config,
+    inverse_problem_config,
+    texture160_colorization_cmde_block_config,
+    texture160_inpainting_cmde_block_config,
+    texture160_inpainting_cmde_config,
+    texture64_i2i_cmde_block_config,
+    texture_mri_to_pet_3d_config,
+    texture_mri_to_pet_slices_block_config,
 )
 from .multiscale import (
     hq160_sequential_bicubic_master_config,
@@ -59,10 +71,17 @@ __all__ = [
     "hq160_sequential_bicubic_master_config",
     "hq160_sequential_config",
     "hq160_sequential_haar_master_config",
+    "i2i_interpolation_config",
     "image_model_defaults",
+    "inpainting_interpolation_config",
+    "inverse_problem_config",
+    "mri_to_pet_config",
     "synthetic_config",
+    "texture160_colorization_cmde_block_config",
     "texture160_direct_8x_block_config",
     "texture160_direct_8x_config",
+    "texture160_inpainting_cmde_block_config",
+    "texture160_inpainting_cmde_config",
     "texture160_kxsr_ncsnpp_block_config",
     "texture160_kxsr_ncsnpp_config",
     "texture160_sequential_bicubic_master_block_config",
@@ -80,11 +99,14 @@ __all__ = [
     "texture64_haar_multiscale_unconditional_block_config",
     "texture64_haar_multiscale_unconditional_config",
     "texture64_haar_scale_config",
+    "texture64_i2i_cmde_block_config",
     "texture64_multiscale_master_block_config",
     "texture64_multiscale_master_config",
     "texture64_sr_cmde_config",
     "texture64_sr_cmde_test_config",
     "texture64_sr_dv_config",
+    "texture_mri_to_pet_3d_config",
+    "texture_mri_to_pet_slices_block_config",
     "toy_gaussian_bubbles_config",
     "toy_vp_config",
     "unconditional_pkl_config",

@@ -1,4 +1,5 @@
-"""Three recipes of the JAX package's `configs/extra.py`, copied: the
+"""Four recipes of the JAX package's `configs/extra.py`, copied: MRI->PET
+on paired scans, 2-D slices or 3-D volumes (`mri_to_pet_config`), the
 unconditional VE NCSN++ on a `.pklv4` image list (`unconditional_pkl_config`),
 CIFAR-10 under a VP or sub-VP SDE (`cifar10_vp_config`, DDPM++
 continuous on the ``ncsnpp`` graph) and the unconditional DDPM of Haar
@@ -12,6 +13,65 @@ from __future__ import annotations
 import math
 
 from .base import Config, base_config, image_model_defaults
+
+
+def mri_to_pet_config(volumetric: bool = False, approach: str = "ours_DV") -> Config:
+    """MRI->PET paired scans (JAX `configs/extra.py:mri_to_pet_config`):
+    96px one-channel slices through ``ddpm_paired`` (nf 96, ch_mult
+    (1, 1, 2, 2, 3, 3), attention at 12/6), or [1, 96, 96, 16] volumes
+    through ``ddpm3D_paired`` (nf 32, ch_mult (1, 2, 2), no attention);
+    ``sr3`` takes the ``_SR3`` models."""
+    config = base_config()
+    training = config.training
+    training.lightning_module = "conditional_decreasing_variance" if approach == "ours_DV" else "conditional"
+    training.conditioning_approach = approach
+    training.batch_size = 4 if volumetric else 32
+    training.visualization_callback = "paired3D" if volumetric else "paired"
+    training.sde = "vesde"
+
+    sampling = config.sampling
+    sampling.predictor = "conditional_reverse_diffusion"
+    sampling.corrector = "conditional_langevin"
+
+    data = config.data
+    data.dataset = "mri_to_pet"
+    data.task = "image-to-image"
+    data.datamodule = "paired"
+    size = 96
+    data.image_size = size
+    data.effective_image_size = size
+    if volumetric:
+        data.shape_x = [1, size, size, 16]
+        data.shape_y = [1, size, size, 16]
+    else:
+        data.shape_x = [1, size, size]
+        data.shape_y = [1, size, size]
+    data.num_channels = 2
+    data.use_flip = True
+    # per-domain intensity ranges (`data.paired.normalise`)
+    data.range_y = (0.0, 255.0)
+    data.range_x = (0.0, 255.0)
+
+    model = config.model
+    model.num_scales = 1000
+    model.sigma_max_x = float(math.sqrt(math.prod(data.shape_x)))
+    model.sigma_min_x = 5e-3
+    model.sigma_min_y = 5e-3
+    model.sigma_max_y = float(math.sqrt(math.prod(data.shape_y)))
+    model.sigma_max_y_target = 1.0
+    model.sigma_min_y_target = 5e-3
+    model.reach_target_steps = training.n_iters
+    if volumetric:
+        model.name = "ddpm3D_paired_SR3" if approach == "sr3" else "ddpm3D_paired"
+    else:
+        model.name = "ddpm_paired_SR3" if approach == "sr3" else "ddpm_paired"
+    image_model_defaults(model)
+    model.nf = 32 if volumetric else 96
+    model.ch_mult = (1, 2, 2) if volumetric else (1, 1, 2, 2, 3, 3)
+    model.attn_resolutions = () if volumetric else (12, 6)
+    model.input_channels = 2
+    model.output_channels = 1 if approach == "sr3" else 2
+    return config
 
 
 def unconditional_pkl_config(image_size: int = 64) -> Config:

@@ -1,7 +1,8 @@
 """Degradations on host numpy batches, copied from the JAX package's
 `data/degradations.py`: `bicubic_resize_np`, `sr_degrade`, `grayscale`
-(the colorizer's input) and `random_square_mask` (the inpainting mask the
-offline pipeline re-rolls)."""
+(the colorization task's y and the colorizer's input), `random_square_mask`
+(the inpainting task's mask, which the offline pipeline re-rolls) and
+`inpainting_degrade`."""
 
 from __future__ import annotations
 
@@ -68,3 +69,8 @@ def random_square_mask(
         sy = r.integers(0, W - mask_size + 1) if W > mask_size else 0
         mask[i, sx : sx + mask_size, sy : sy + mask_size, 0] = 1.0
     return mask
+
+
+def inpainting_degrade(batch: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """``batch`` with the masked square (``mask`` 1) set to 0."""
+    return batch * (1.0 - mask)

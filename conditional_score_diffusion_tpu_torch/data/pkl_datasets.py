@@ -6,8 +6,14 @@ batches of two datamodules (:class:`PKLDataModule`; the numpy batch assembly
 of `data/native.py`, which its C++ extension only speeds up, by one float32
 ulp):
 
-* `General_PKLDataset`: GT images with on-the-fly super-resolution
-  degradation (y is the bicubic LR upsampled back by nearest neighbour);
+* `General_PKLDataset`: GT images (resized bicubic to ``data.image_size``
+  where they differ) degraded on the fly by ``data.task``:
+  ``super-resolution`` (y the bicubic LR upsampled back by nearest
+  neighbour), ``colorization`` (y the one-channel luma) or ``inpainting``
+  (y the image with a random square of ``data.mask_coverage`` of its area
+  set to 0; the batch also carries that ``mask``, [B, H, W, 1], 1 inside
+  the square; in the test split with ``eval.use_seed`` each item's square
+  is drawn from its own generator seeded with its index in the split);
 * `LRHR_PKLDataset`: stored LQ/GT pairs, y the LQ image as it is (or
   upsampled by nearest neighbour where the recipe sets ``upscale_lr``);
 * `unpaired_PKLDataset`: the GT images alone, a batch a bare NHWC array,
@@ -19,10 +25,12 @@ ulp):
 
 The train split is shuffled every epoch and, with ``data.use_flip``, each
 image (and its LQ partner) flipped horizontally by a mask drawn from the
-same numpy generator, ``np.random.default_rng(seed)``, as in JAX: the port
-and the JAX package give the same train batches.  Random crops and
-rotations (``data.use_crop``, ``data.use_rot``) and the colorization and
-inpainting tasks are not ported.
+same numpy generator, ``np.random.default_rng(seed)``, as in JAX (the
+inpainting squares after the flip mask, one item after another): the port
+and the JAX package give the same batches.  `LRHR_PKLDataset`'s random
+crops (``data.use_crop``, every split in JAX) and rotations
+(``data.use_rot``, the train split) are not ported: a recipe that asks for
+them is refused.
 """
 
 from __future__ import annotations
@@ -36,7 +44,14 @@ from typing import Callable, Dict, Iterator, List, Optional
 import numpy as np
 
 from . import register_datamodule
-from .degradations import bicubic_resize_np, nearest_upsample_np, sr_degrade
+from .degradations import (
+    bicubic_resize_np,
+    grayscale,
+    inpainting_degrade,
+    nearest_upsample_np,
+    random_square_mask,
+    sr_degrade,
+)
 
 _PKL_FILES = {
     # dataset -> phase -> (LQ_file, GT_file)
@@ -90,14 +105,33 @@ def assemble_batch(images: List[np.ndarray], flips: Optional[np.ndarray] = None)
     ])
 
 
-def make_sr_batch(
-    images: List[np.ndarray], image_size: int, scale: int, flips: Optional[np.ndarray] = None
+GENERAL_TASKS = ("super-resolution", "colorization", "inpainting")
+
+
+def make_general_batch(
+    images: List[np.ndarray],
+    task: str,
+    image_size: int,
+    scale: int = 4,
+    flips: Optional[np.ndarray] = None,
+    mask_coverage: float = 0.25,
+    rng: Optional[np.random.Generator] = None,
+    seeds: Optional[np.ndarray] = None,
 ) -> Dict[str, np.ndarray]:
-    """``{'x': HR, 'y': SR-degraded HR}`` for one batch."""
+    """One `General_PKLDataset` batch of ``task``: ``{'x': GT, 'y': its
+    degradation}`` (inpainting: and ``'mask'``, each item's square drawn
+    from ``rng``, or from its own generator seeded with ``seeds[i]``)."""
     x = assemble_batch(images, flips)
     if x.shape[1] != image_size:
         x = bicubic_resize_np(x, image_size)
-    return {"x": x, "y": sr_degrade(x, scale)}
+    if task == "super-resolution":
+        return {"x": x, "y": sr_degrade(x, scale)}
+    if task == "colorization":
+        return {"x": x, "y": grayscale(x)}
+    if task == "inpainting":
+        mask = random_square_mask(x.shape, mask_coverage, rng, seeds=seeds)
+        return {"x": x, "y": inpainting_degrade(x, mask), "mask": mask}
+    raise NotImplementedError(f"task {task!r} not supported")
 
 
 def make_lrhr_batch(
@@ -226,8 +260,11 @@ class PKLDataModule:
             image_size = c.data.image_size
             return lambda idx, rng: make_unpaired_batch([hr[i] for i in idx], image_size, use_flip, rng)
         if self.lrhr:
-            if phase == "train" and (c.data.get("use_crop", False) or c.data.get("use_rot", False)):
-                raise NotImplementedError("random crops and rotations of LRHR_PKLDataset are not ported")
+            # JAX crops in every split and rotates in the train split
+            if c.data.get("use_crop", False) or (phase == "train" and c.data.get("use_rot", False)):
+                raise NotImplementedError(
+                    "random crops and rotations of LRHR_PKLDataset are not ported (ROADMAP.md section 1, item 12b)"
+                )
             upscale_lr, lr = c.data.get("upscale_lr", False), images["lr"]
 
             def make_batch(idx, rng):
@@ -235,13 +272,19 @@ class PKLDataModule:
                 return make_lrhr_batch([lr[i] for i in idx], [hr[i] for i in idx], upscale_lr, flips)
 
             return make_batch
-        if c.data.task != "super-resolution":
-            raise NotImplementedError(f"task {c.data.task!r} is not ported")
+        task = c.data.task
+        if task not in GENERAL_TASKS:
+            raise NotImplementedError(f"task {task!r} not supported")
         image_size, scale = c.data.image_size, c.data.get("scale", 4)
+        mask_coverage = c.data.get("mask_coverage", 0.25)
+        use_seed = phase == "test" and c.eval.get("use_seed", False)
 
         def make_batch(idx, rng):
             flips = flips_of(idx, rng)
-            return make_sr_batch([hr[i] for i in idx], image_size, scale, flips)
+            seeds = np.asarray(idx) if use_seed else None
+            return make_general_batch(
+                [hr[i] for i in idx], task, image_size, scale, flips, mask_coverage, rng, seeds
+            )
 
         return make_batch
 

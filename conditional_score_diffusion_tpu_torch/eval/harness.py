@@ -14,7 +14,8 @@ lists, one value per batch, are pickled to
 of `eval/bpd.py` under ``"bpd"`` where ``eval.enable_bpd`` is set and the
 recipe names no ``training.conditioning_approach``.  LPIPS needs
 weights that are not in the repo and is skipped with the JAX package's note
-(ROADMAP.md section 1, item 10).
+(ROADMAP.md section 1, item 10).  The batches are the recipe's datamodule's
+test split; an inpainting batch's ``mask`` feeds its consistency.
 
 All draws come from one noise source, by default a `torch.Generator` seeded
 with ``config.seed + 17`` on the device, used by the sampler calls in turn
@@ -35,7 +36,6 @@ import torch
 from PIL import Image
 
 from ..data import create_datamodule
-from ..data.pkl_datasets import PKLDataModule
 from ..models import create_model
 from ..ops.resize import full_float32
 from ..sampling import gaussian_noise, get_conditional_sampling_fn
@@ -44,7 +44,7 @@ from ..sde import build_sde
 from ..training.checkpoint import load_eval_weights
 from ..training.schedules import is_decreasing_variance, sigma_y_at_step
 from .bpd import evaluate_bpd
-from .metrics import LPIPS_NOTE, get_consistency_fn, mean_psnr, mean_ssim
+from .metrics import LPIPS_NOTE, ConsistencyUnavailable, get_consistency_fn, mean_psnr, mean_ssim
 from .metrics import diversity as diversity_metric
 
 
@@ -129,7 +129,9 @@ def run_test(
     if "consistency" in metrics_list:
         try:
             consistency_fn = get_consistency_fn(config.data.task)
-        except NotImplementedError:
+        except NotImplementedError as e:
+            if isinstance(e, ConsistencyUnavailable):
+                print(f"[test] consistency unavailable ({e}); skipping it.")
             metrics_list.remove("consistency")
 
     results = {e_snr: {m: [] for m in metrics_list} for e_snr in snr_list}
@@ -150,7 +152,9 @@ def run_test(
         noise = gaussian_noise(noise)
     images_tested = evalc.batch_size * evalc.first_test_batch
 
-    for batch_idx, batch in enumerate(PKLDataModule(config).test_iterator()):
+    datamodule = create_datamodule(config)
+    datamodule.setup()
+    for batch_idx, batch in enumerate(datamodule.test_iterator()):
         if batch_idx < evalc.first_test_batch:
             continue
         if batch_idx >= evalc.last_test_batch:
@@ -189,7 +193,8 @@ def run_test(
                     if config.data.task == "super-resolution":
                         per_draw["consistency"].append(consistency_fn(samples, x_gt, config.data.scale))
                     elif config.data.task == "inpainting" and "mask" in batch:
-                        per_draw["consistency"].append(consistency_fn(samples, x_gt, torch.from_numpy(batch["mask"])))
+                        mask = torch.from_numpy(batch["mask"]).to(device)
+                        per_draw["consistency"].append(consistency_fn(samples, x_gt, mask))
                     else:
                         per_draw["consistency"].append(consistency_fn(samples, x_gt))
                 if "diversity" in metrics_list:

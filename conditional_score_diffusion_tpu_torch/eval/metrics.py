@@ -12,6 +12,8 @@ arrays; results are Python floats or float64 tensors.
 LPIPS and FID need pretrained weights that are not in the repo and are not
 ported (ROADMAP.md section 1, item 10); the harness and the pipeline skip
 them with the JAX package's notes, :data:`LPIPS_NOTE` and :data:`FID_NOTE`.
+The image-to-image consistency compares Canny edge maps from OpenCV; where
+``cv2`` does not import, they skip it with :data:`CANNY_NOTE`.
 """
 
 from __future__ import annotations
@@ -28,6 +30,11 @@ LPIPS_NOTE = "LPIPS needs AlexNet weights; set CSDT_LPIPS_ALEXNET to a local tor
 FID_NOTE = (
     "FID inception weights not found; set CSDT_INCEPTION_WEIGHTS to a local pt_inception-2015-12-05-6726825d.pth"
 )
+CANNY_NOTE = "the image-to-image consistency compares OpenCV Canny edge maps, and cv2 does not import"
+
+
+class ConsistencyUnavailable(NotImplementedError):
+    """A task's consistency needs a package that does not import here."""
 
 
 def _f64(img) -> torch.Tensor:
@@ -95,7 +102,8 @@ def diversity(draws) -> float:
 def get_consistency_fn(task: str) -> Callable:
     """Forward-operator consistency of ``task``: super-resolution (bicubic
     down by ``scale``, then PSNR), inpainting (PSNR of the known region) or
-    image-to-image (PSNR of Canny edge maps; needs cv2, imported at use)."""
+    image-to-image (PSNR of Canny edge maps; raises
+    :class:`ConsistencyUnavailable` where cv2 does not import)."""
     if task == "super-resolution":
 
         def consistency_fn(samples, hr_gt, scale):
@@ -115,10 +123,12 @@ def get_consistency_fn(task: str) -> Callable:
         return consistency_fn
 
     if task == "image-to-image":
+        try:
+            import cv2
+        except ImportError:
+            raise ConsistencyUnavailable(CANNY_NOTE) from None
 
         def consistency_fn(samples, gt):
-            import cv2
-
             def edges(img):
                 u8 = np.clip(torch.as_tensor(img).detach().cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
                 out = []

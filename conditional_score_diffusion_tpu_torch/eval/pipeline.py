@@ -6,7 +6,8 @@ the PNGs by file number, computes PSNR, SSIM and consistency per draw and
 the diversity across draws (pixel std of the [0, 1] images), and pickles
 ``evaluation_info.pkl`` with the JAX package's keys.  LPIPS and FID need
 weights that are not in the repo and are not ported (ROADMAP.md section 1,
-item 10): they go to ``skipped`` with the JAX package's notes.
+item 10): they go to ``skipped`` with the JAX package's notes; so does the
+image-to-image consistency where cv2 does not import (`metrics.CANNY_NOTE`).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 from PIL import Image
 
 from ..data.degradations import random_square_mask
-from .metrics import FID_NOTE, LPIPS_NOTE, get_consistency_fn, mean_psnr, mean_ssim
+from .metrics import FID_NOTE, LPIPS_NOTE, ConsistencyUnavailable, get_consistency_fn, mean_psnr, mean_ssim
 
 
 def load_images(paths: List[str]) -> np.ndarray:
@@ -47,12 +48,14 @@ def run_evaluation_pipeline(
     snr: float,
     scale: int = 8,
     mask_coverage: Optional[float] = None,
-    mask_seed_offset: int = 0,
     device: Union[str, torch.device] = "cuda",
 ) -> Dict:
     """Evaluate the trees under ``base_path`` at ``snr``; the metrics run on
-    ``device``.  For inpainting, ``mask_coverage`` and ``mask_seed_offset``
-    re-roll each image's mask from its number."""
+    ``device``.  For inpainting, ``mask_coverage`` re-rolls each image's
+    mask from its number: PNG ``k`` is item ``k - 1`` of the test split,
+    whose square the datamodule draws with seed ``k - 1`` (JAX's pipeline
+    takes an offset, which its CLI sets to ``first_test_batch *
+    batch_size`` and so re-rolls other squares past test batch 0)."""
     samples_root = os.path.join(base_path, "images", "samples", f"snr_{snr:.3f}")
     x_dir = os.path.join(base_path, "images", "x_gt")
     y_dir = os.path.join(base_path, "images", "y_gt")
@@ -77,18 +80,19 @@ def run_evaluation_pipeline(
     consistency_fn = None
     try:
         consistency_fn = get_consistency_fn(task)
+    except ConsistencyUnavailable as e:
+        results["skipped"].append(f"consistency ({e})")
     except NotImplementedError:
         results["skipped"].append("consistency")
 
-    # inpainting: re-roll the seeded test-time masks from the saved image
-    # ids (PNG id k <-> dataset index mask_seed_offset + k - 1)
+    # inpainting: re-roll the seeded test-time masks from the saved image ids
     masks = None
     if task == "inpainting" and consistency_fn is not None:
         if mask_coverage is None:
             results["skipped"].append("consistency (no mask_coverage/seeds)")
             consistency_fn = None
         else:
-            seeds = np.asarray([mask_seed_offset + i - 1 for i in ids])
+            seeds = np.asarray([i - 1 for i in ids])
             masks = as_tensor(random_square_mask(tuple(x.shape), mask_coverage, np.random.default_rng(0), seeds=seeds))
     results["skipped"].append(f"lpips ({LPIPS_NOTE})")
 

@@ -9,17 +9,23 @@
         --mode evaluation_pipeline --config texture64_sr_cmde_test
     python -m conditional_score_diffusion_tpu_torch.main \\
         --mode multi_scale_test --config texture64_multiscale_master
+    python -m conditional_score_diffusion_tpu_torch.main \\
+        --mode compute_dataset_statistics --config texture64_sr_cmde
 
 ``--config`` is a recipe of `configs` by name (``texture160_sr_cmde_conv3x3``
-for `configs.texture160_sr_cmde_conv3x3_config`) or the path of a Python
-file whose ``get_config()`` returns a `configs.Config`; for
+for `configs.texture160_sr_cmde_conv3x3_config`), the path of a JAX recipe
+file that `configs.inverse_problems.RECIPES` copies
+(``configs/ve/inverse_problems/inpainting/celebA_ours_NDV.py``, read from
+the table, not the file) or the path of a Python file whose
+``get_config()`` returns a `configs.Config`; for
 ``evaluation_pipeline`` it may also be a master config (a `Config` of leaf
 recipes, JAX `run_lib.py:evaluation_pipeline`), and for
 ``multi_scale_test`` it is one (per-scale recipes and a
 ``coordinate_space``, `configs/multiscale.py`; the chain's PNGs and
-``metrics.json`` go under ``{log_path}/multi_scale``).  ``--device`` (not
-a JAX flag) is ``cuda`` unless the caller asks for the CPU.
-``compute_dataset_statistics`` raises, naming its ROADMAP.md item.
+``metrics.json`` go under ``{log_path}/multi_scale``).
+``compute_dataset_statistics`` writes the mean of the train split's Haar
+detail coefficients (`data.statistics`).  ``--device`` (not a JAX flag) is
+``cuda`` unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -31,13 +37,16 @@ import os
 from . import configs
 
 MODES = ["train", "test", "multi_scale_test", "compute_dataset_statistics", "evaluation_pipeline"]
-NOT_PORTED = {
-    "compute_dataset_statistics": "data/statistics.py (ROADMAP.md section 1, item 11)",
-}
 
 
 def load_config(name: str):
-    """A recipe by name, or from a file that defines ``get_config()``."""
+    """A recipe by name, by the path of a JAX recipe file the port copies,
+    or from a file that defines ``get_config()``."""
+    from .configs.inverse_problems import RECIPES, recipe_key
+
+    key = recipe_key(name)
+    if key is not None:
+        return RECIPES[key]()
     if name.endswith(".py") or os.path.sep in name:
         spec = importlib.util.spec_from_file_location("recipe", name)
         module = importlib.util.module_from_spec(spec)
@@ -67,8 +76,6 @@ def main(argv=None) -> None:
         for recipe in [config] if "data" in config else vars(config).values():
             if hasattr(recipe, "data") and "base_dir" in recipe.data:
                 recipe.data.base_dir = args.data_path
-    if args.mode in NOT_PORTED:
-        raise NotImplementedError(f"--mode {args.mode} is not ported: it needs {NOT_PORTED[args.mode]}")
     if args.mode == "train":
         from .training.trainer import train
 
@@ -81,6 +88,10 @@ def main(argv=None) -> None:
         from .eval.multiscale import run_multi_scale_test
 
         run_multi_scale_test(config, args.log_path, device=args.device)
+    elif args.mode == "compute_dataset_statistics":
+        from .data.statistics import compute_dataset_statistics
+
+        compute_dataset_statistics(config, device=args.device)
     else:
         evaluation_pipeline(config, device=args.device)
 
@@ -94,10 +105,7 @@ def _evaluate_one_config(config, device):
     task = config.data.task
     mask_kwargs = {}
     if task == "inpainting" and config.eval.get("use_seed", False):
-        mask_kwargs = dict(
-            mask_coverage=config.data.get("mask_coverage", 0.25),
-            mask_seed_offset=config.eval.first_test_batch * config.eval.batch_size,
-        )
+        mask_kwargs = dict(mask_coverage=config.data.get("mask_coverage", 0.25))
     return {
         snr: run_evaluation_pipeline(
             task, output_dir(config), snr, scale=config.data.get("scale", 8), device=device, **mask_kwargs

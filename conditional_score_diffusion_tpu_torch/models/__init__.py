@@ -55,6 +55,7 @@ def init_model_random(config, seed: int = 0, scale: float = 0.02, device="cuda")
 
 # Side-effect imports fill the registry.
 from . import ddpm  # noqa: E402,F401
+from . import ddpm3d  # noqa: E402,F401
 from . import fcn  # noqa: E402,F401
 from . import ncsnpp  # noqa: E402,F401
 

@@ -5,6 +5,7 @@ Module names are the same on both sides (`models/ddpm.py`,
 `models/ncsnpp.py`), so the bridge only renames leaves and transposes them:
 
   * conv ``kernel`` HWIO          <-> ``weight`` OIHW (3x3 and 1x1 convs)
+  * 3-D conv ``kernel`` DHWIO     <-> ``weight`` OIDHW (`models/ddpm3d.py`)
   * dense ``kernel`` (in, out)    <-> ``weight`` (out, in)   (Dense, NIN,
     SplitNIN: ``.../dense/kernel``; the FCN's ``Dense_i`` <-> its
     ``nn.Linear`` ``Dense_i``)
@@ -31,6 +32,8 @@ import torch
 def _leaf_to_torch(name: str, value: np.ndarray):
     if name in ("kernel", "conv_w") and value.ndim == 4:
         return "weight" if name == "kernel" else name, np.transpose(value, (3, 2, 0, 1))
+    if name == "kernel" and value.ndim == 5:
+        return "weight", np.transpose(value, (4, 3, 0, 1, 2))
     if name in ("W", "conv_b") and value.ndim == 1:
         return name, value
     if name == "kernel" and value.ndim == 2:
@@ -66,6 +69,8 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
         arr = tensor.detach().cpu().numpy()
         if leaf in ("weight", "conv_w") and arr.ndim == 4:
             leaf, arr = "kernel" if leaf == "weight" else leaf, np.transpose(arr, (2, 3, 1, 0))
+        elif leaf == "weight" and arr.ndim == 5:
+            leaf, arr = "kernel", np.transpose(arr, (2, 3, 4, 1, 0))
         elif leaf == "weight" and arr.ndim == 2:
             leaf, arr = "kernel", arr.T
         elif leaf == "weight" and arr.ndim == 1:

@@ -3,6 +3,10 @@
 Activations stay NHWC as in the JAX package: dense layers act on the last
 axis, and a conv runs `F.conv2d` on the NCHW view of the NHWC tensor (a
 channels-last tensor to cuDNN), so no layout copy is made between layers.
+The convs, GroupNorms and the DDPM resblock also take volumes, NDHWC, with
+``dim=3`` (JAX ``dim``; `models/ddpm3d.py`): `F.conv3d` on the NCDHW view,
+a 3x3x3 kernel; the kernels of `ops` stay 2-D, and every gate refuses a
+3-D call.
 
 Every module keeps the JAX module's name and its parameters' names map
 one to one onto the Flax tree (`models/convert.py`): ``kernel`` ->
@@ -71,12 +75,13 @@ def carries_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
-def fused_block_applicable(x, act, train: bool, skip, out_ch: int, enabled: bool) -> bool:
+def fused_block_applicable(x, act, train: bool, skip, out_ch: int, enabled: bool, dim: int = 2) -> bool:
     """Gate of the block kernel (JAX `fused_block_applicable`): on, eval,
-    no skip, SiLU, and the shape gate on ``x``; and no gradient through
-    ``x`` (`carries_grad`)."""
+    2-D, no skip, SiLU, and the shape gate on ``x``; and no gradient
+    through ``x`` (`carries_grad`)."""
     return (
         enabled
+        and dim == 2
         and not train
         and not carries_grad(x)
         and skip is None
@@ -85,10 +90,10 @@ def fused_block_applicable(x, act, train: bool, skip, out_ch: int, enabled: bool
     )
 
 
-def fused_split_block_applicable(x, skip, act, train: bool, out_ch: int, enabled: bool) -> bool:
+def fused_split_block_applicable(x, skip, act, train: bool, out_ch: int, enabled: bool, dim: int = 2) -> bool:
     """Gate of the split kernel (JAX `fused_split_block_applicable`): the
     same on the shape of the concat cat(x, skip)."""
-    if not enabled or train or skip is None or act is not F.silu or carries_grad(x, skip):
+    if not enabled or dim != 2 or train or skip is None or act is not F.silu or carries_grad(x, skip):
         return False
     concat_shape = tuple(x.shape[:-1]) + (x.shape[-1] + skip.shape[-1],)
     return fused_block_candidate_policy(concat_shape, out_ch)
@@ -112,7 +117,7 @@ def apply_conv_dispatch(model: nn.Module, name: str = "none") -> nn.Module:
         raise KeyError(f"unknown conv_dispatch {name!r}; known: {', '.join(CONV_POLICIES)}")
     for m in model.modules():
         if isinstance(m, Conv3x3):
-            m.use_kernel = CONV_POLICIES[name] and m.stride == 1 and m.padding == 1
+            m.use_kernel = CONV_POLICIES[name] and m.dim == 2 and m.stride == 1 and m.padding == 1
     return model
 
 
@@ -139,17 +144,20 @@ class Dense(nn.Module):
 
 
 class Conv3x3(nn.Module):
-    """3x3 conv with DDPM init, NHWC in and out, OIHW weight.
+    """3x3 conv with DDPM init, NHWC in and out, OIHW weight; with ``dim=3``
+    a 3x3x3 conv of NDHWC volumes, OIDHW weight.
 
-    ``use_kernel`` (set by :func:`apply_conv_dispatch`, stride 1 and padding
-    1 only): the conv runs on `ops.conv3x3.conv3x3`, bias added in float32
-    in its epilogue; otherwise on `F.conv2d`."""
+    ``use_kernel`` (set by :func:`apply_conv_dispatch`, 2-D, stride 1 and
+    padding 1 only): the conv runs on `ops.conv3x3.conv3x3`, bias added in
+    float32 in its epilogue; otherwise on `F.conv2d` (`F.conv3d`)."""
 
-    def __init__(self, in_ch: int, out_ch: int, init_scale: float = 1.0, stride: int = 1, padding: int = 1):
+    def __init__(
+        self, in_ch: int, out_ch: int, init_scale: float = 1.0, stride: int = 1, padding: int = 1, dim: int = 2
+    ):
         super().__init__()
-        self.weight = nn.Parameter(default_init_(torch.empty(out_ch, in_ch, 3, 3), init_scale))
+        self.weight = nn.Parameter(default_init_(torch.empty(out_ch, in_ch, *(3,) * dim), init_scale))
         self.bias = nn.Parameter(torch.zeros(out_ch))
-        self.stride, self.padding = stride, padding
+        self.stride, self.padding, self.dim = stride, padding, dim
         self.use_kernel = False
 
     def conv(self, x, w, bias=None):
@@ -157,7 +165,11 @@ class Conv3x3(nn.Module):
         an optional float32 ``bias``, by the chosen lowering."""
         if self.use_kernel:
             return conv3x3(x.contiguous(), w, bias)
-        return conv3x3_nhwc(x, w, None if bias is None else bias.to(x.dtype), self.stride, self.padding)
+        bias = None if bias is None else bias.to(x.dtype)
+        if self.dim == 3:
+            y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, bias, stride=self.stride, padding=self.padding)
+            return y.permute(0, 2, 3, 4, 1)
+        return conv3x3_nhwc(x, w, bias, self.stride, self.padding)
 
     def forward(self, x):
         return self.conv(x, self.weight.to(x.dtype), self.bias.float())
@@ -196,8 +208,15 @@ class Conv1x1(nn.Module):
         return self.weight.flatten(1), self.bias
 
 
+def per_pixel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A (B, C) tensor as (B, 1, ..., 1, C), to broadcast over ``x``'s
+    spatial axes."""
+    return v.reshape(v.shape[:1] + (1,) * (x.ndim - 2) + v.shape[1:])
+
+
 class GroupNorm(nn.Module):
-    """GroupNorm over the last axis of NHWC data, statistics in float32."""
+    """GroupNorm over the last axis of NHWC (or NDHWC) data, statistics in
+    float32."""
 
     def __init__(self, num_channels: int, num_groups: int, eps: float = 1e-6):
         super().__init__()
@@ -209,7 +228,7 @@ class GroupNorm(nn.Module):
         mean, rstd = group_norm_stats(x, self.num_groups, self.eps)
         scale = rstd * self.weight
         shift = self.bias - mean * scale
-        return torch.addcmul(shift[:, None, None, :], x, scale[:, None, None, :]).to(x.dtype)
+        return torch.addcmul(per_pixel(shift, x), x, per_pixel(scale, x)).to(x.dtype)
 
 
 def legacy_group_norm(ch: int) -> GroupNorm:
@@ -226,11 +245,12 @@ class SplitGroupNorm(GroupNorm):
         ca, c = a.shape[-1], a.shape[-1] + b.shape[-1]
         g = self.num_groups
         gs = c // g
-        n = float(a.shape[1] * a.shape[2] * gs)
+        n = float(math.prod(a.shape[1:-1]) * gs)
+        spatial = tuple(range(1, a.ndim - 1))
 
         def moments(x):
             xf = x.float()
-            return xf.sum(dim=(1, 2)), (xf * xf).sum(dim=(1, 2))  # (B, Cx)
+            return xf.sum(dim=spatial), (xf * xf).sum(dim=spatial)  # (B, Cx)
 
         sa, qa = moments(a)
         sb, qb = moments(b)
@@ -239,8 +259,8 @@ class SplitGroupNorm(GroupNorm):
         mu = s / n
         var = q / n - mu * mu
         inv = torch.rsqrt(var + self.eps)
-        mu_c = mu.repeat_interleave(gs, dim=-1)[:, None, None, :]
-        inv_c = inv.repeat_interleave(gs, dim=-1)[:, None, None, :]
+        mu_c = per_pixel(mu.repeat_interleave(gs, dim=-1), a)
+        inv_c = per_pixel(inv.repeat_interleave(gs, dim=-1), a)
 
         def norm(x, lo, hi):
             y = (x.float() - mu_c[..., lo:hi]) * inv_c[..., lo:hi] * self.weight[lo:hi] + self.bias[lo:hi]
@@ -347,13 +367,16 @@ class FusedResblock(nn.Module):
     A subclass sets ``act``, ``out_ch``, ``fused_tail``, ``fused_block``,
     ``skip_rescale`` and the modules ``norm0``, ``conv0``, ``temb_proj``,
     ``norm1``, ``dropout``, ``conv1`` and ``shortcut`` (None, or a layer with
-    ``channel_mix()``).
+    ``channel_mix()``).  A 3-D block (``dim`` 3) takes no kernel, as in JAX.
     """
+
+    dim = 2
 
     def gn_act_conv_tail(self, h):
         """The norm1 -> act -> dropout -> conv1 tail."""
         if (
             self.fused_tail
+            and self.dim == 2
             and not self.training
             and not carries_grad(h)
             and self.act is F.silu
@@ -394,9 +417,9 @@ class FusedResblock(nn.Module):
 
     def fused_whole_block(self, x, temb, skip) -> Optional[torch.Tensor]:
         """The block as one kernel call where its gate holds, else None."""
-        if fused_block_applicable(x, self.act, self.training, skip, self.out_ch, self.fused_block):
+        if fused_block_applicable(x, self.act, self.training, skip, self.out_ch, self.fused_block, self.dim):
             return resblock_fused(x.contiguous(), **self.fused_block_args(x.dtype, temb))
-        if fused_split_block_applicable(x, skip, self.act, self.training, self.out_ch, self.fused_block):
+        if fused_split_block_applicable(x, skip, self.act, self.training, self.out_ch, self.fused_block, self.dim):
             return resblock_fused_split(x.contiguous(), skip.contiguous(), **self.fused_block_args(x.dtype, temb))
         return None
 
@@ -406,8 +429,9 @@ class FusedResblock(nn.Module):
 
 
 class ResnetBlockDDPM(FusedResblock):
-    """DDPM ResNet block (2D); with ``num_groups=default_num_groups``, the
-    conv1 ``init_scale`` and ``skip_rescale`` it is the NCSN++ DDPM block.
+    """DDPM ResNet block, 2-D or, with ``dim=3``, 3-D (NDHWC); with
+    ``num_groups=default_num_groups``, the conv1 ``init_scale`` and
+    ``skip_rescale`` it is the NCSN++ DDPM block.
 
     ``split_skip``: when a ``skip`` tensor is passed, compute the block on
     the virtual concatenation cat(x, skip) (SplitGroupNorm, SplitConv3x3,
@@ -432,22 +456,23 @@ class ResnetBlockDDPM(FusedResblock):
         num_groups: Callable[[int], int] = legacy_num_groups,
         init_scale: float = 0.0,
         skip_rescale: bool = False,
+        dim: int = 2,
     ):
         super().__init__()
         out_ch = out_ch if out_ch is not None else in_ch
         self.act, self.in_ch, self.out_ch, self.conv_shortcut = act, in_ch, out_ch, conv_shortcut
         self.split_skip, self.fused_tail, self.fused_block = split_skip, fused_tail, fused_block
-        self.skip_rescale = skip_rescale
+        self.skip_rescale, self.dim = skip_rescale, dim
         G_in = num_groups(in_ch)
         self.norm0 = SplitGroupNorm(in_ch, G_in) if split_skip else GroupNorm(in_ch, G_in)
-        self.conv0 = (SplitConv3x3 if split_skip else Conv3x3)(in_ch, out_ch)
+        self.conv0 = (SplitConv3x3 if split_skip else Conv3x3)(in_ch, out_ch, dim=dim)
         self.temb_proj = Dense(temb_dim, out_ch) if temb_dim is not None else None
         self.norm1 = GroupNorm(out_ch, num_groups(out_ch))
         self.dropout = nn.Dropout(dropout)
-        self.conv1 = Conv3x3(out_ch, out_ch, init_scale=init_scale)
+        self.conv1 = Conv3x3(out_ch, out_ch, init_scale=init_scale, dim=dim)
         if in_ch != out_ch:
             if conv_shortcut:
-                self.shortcut = (SplitConv3x3 if split_skip else Conv3x3)(in_ch, out_ch)
+                self.shortcut = (SplitConv3x3 if split_skip else Conv3x3)(in_ch, out_ch, dim=dim)
             else:
                 self.shortcut = (SplitNIN if split_skip else NIN)(in_ch, out_ch)
         else:
@@ -467,7 +492,7 @@ class ResnetBlockDDPM(FusedResblock):
             na, nb = self.norm0(x, skip)
             h = self.conv0(self.act(na), self.act(nb))
         if temb is not None:
-            h = h + self.temb_proj(self.act(temb))[:, None, None, :]
+            h = h + per_pixel(self.temb_proj(self.act(temb)), h)
         h = self.gn_act_conv_tail(h)
         if self.shortcut is not None:
             x = self.shortcut(x, skip) if skip is not None else self.shortcut(x)

@@ -46,10 +46,11 @@ EVAL_ONLY = (
 
 
 def group_norm_stats(x: torch.Tensor, num_groups: int, eps: float = GN_EPS):
-    """Per-(batch, channel) GroupNorm ``(mean, rstd)`` of NHWC ``x``, float32,
-    each of shape (B, C)."""
-    B, H, W, C = x.shape
-    xg = x.float().reshape(B, H * W, num_groups, C // num_groups)
+    """Per-(batch, channel) GroupNorm ``(mean, rstd)`` of NHWC ``x`` (or
+    NDHWC: any spatial axes between the first and the last), float32, each
+    of shape (B, C)."""
+    B, C = x.shape[0], x.shape[-1]
+    xg = x.float().reshape(B, -1, num_groups, C // num_groups)
     var, mean = torch.var_mean(xg, dim=(1, 3), unbiased=False)
     rstd = torch.rsqrt(var + eps)
     return (

@@ -398,11 +398,11 @@ def test_paired_callback(config, phase: str = "train"):
 
 @register_callback(name="paired3D")
 def paired3d_visualization_callback(config, phase: str = "train"):
-    """Volumes: the reconstruction error of 2 eval volumes
-    (``val_rec_loss_pc``), and along each axis the middle slice's
-    y | sample | ground truth (``paired3D_{axis}``) and a fly-through
-    (``paired_video_dim_{axis}``).  Sampling a volume needs a 3-D model
-    (``ddpm3d``, ROADMAP.md section 1, item 9)."""
+    """Volumes: the reconstruction error of 2 eval volumes sampled by the
+    recipe's 3-D model (``ddpm3D_paired``; at most 100 steps) against their
+    ground truth (``val_rec_loss_pc``), and along each axis the middle
+    slice's y | sample | ground truth (``paired3D_{axis}``) and a
+    fly-through (``paired_video_dim_{axis}``)."""
 
     def fn(trainer, step):
         batch = _val_batch(trainer, 2)
@@ -425,10 +425,10 @@ def paired3d_visualization_callback(config, phase: str = "train"):
 
 
 def _xshape(config):
-    if "shape_x" in config.data:
-        c, h, w = config.data.shape_x
-        return (h, w, c)
-    c, *spatial = config.data.shape
+    """One sample's shape, channels last, from the recipe's channels-first
+    ``data.shape_x`` (or ``data.shape``): (H, W, C), or (H, W, D, C) for a
+    volume, where JAX's unpacks three entries and fails."""
+    c, *spatial = config.data.shape_x if "shape_x" in config.data else config.data.shape
     return tuple(spatial) + (c,)
 
 

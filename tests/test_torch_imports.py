@@ -70,6 +70,6 @@ def test_port_imports_without_jax():
         "ops.haar", "eval.multiscale", "configs.multiscale", "training.callbacks", "models.ddpm",
         "data.pkl_datasets", "data.synthetic", "models.fcn", "configs.toy", "eval.toy",
         "sampling.odeint", "sampling.ode", "sampling.likelihood", "sampling.controllable", "eval.bpd",
-        "data.degradations",
+        "data.degradations", "data.paired", "data.statistics", "configs.inverse_problems", "models.ddpm3d",
     ):
         assert f"conditional_score_diffusion_tpu_torch.{name}" in names, name

@@ -305,4 +305,4 @@ def test_cli_runs_a_toy_master(tmp_path, monkeypatch):
         m = json.load(f)
     assert m["coordinate_space"] == "bicubic" and m["p_steps"] == 3 and np.isfinite(m["mean_psnr"])
     assert len(glob.glob(str(log_path / "multi_scale" / "batch0_*.png"))) == 2
-    assert "multi_scale_test" not in cli.NOT_PORTED
+    assert "multi_scale_test" in cli.MODES

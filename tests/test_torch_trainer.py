@@ -10,6 +10,7 @@ import os
 import textwrap
 
 import jax  # noqa: F401  (the parity files import both frameworks)
+import numpy as np
 import pytest
 import torch
 
@@ -103,8 +104,13 @@ def test_cli_trains_a_toy_recipe(tmp_path):
     cli.main(["--mode", "train", "--config", str(recipe), "--log_path", str(log_path), "--device", "cpu"])
     assert CheckpointManager(str(log_path / "checkpoints")).latest_step() == 2
     assert [s for t, _, s in read_scalars(str(log_path / "scalars.jsonl")) if t == "train_loss"] == [1, 2]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cli.main(["--mode", "compute_dataset_statistics", "--config", str(recipe)])
+    data = tmp_path / "data" / "texture160"
+    data.mkdir(parents=True)
+    (data / "texture160-train.pklv4").symlink_to(os.path.join(REPO, "datasets", "texture160", "texture160-train.pklv4"))
+    cli.main(["--mode", "compute_dataset_statistics", "--config", str(recipe), "--data_path", str(data.parent),
+              "--device", "cpu"])
+    mean = np.load(data.parent / "datasets_mean" / "texture160_32" / "mean.npy")
+    assert mean.shape == (16, 16, 9) and mean.dtype == np.float32 and np.isfinite(mean).all()
     with pytest.raises(KeyError, match="texture160_sr_cmde_conv3x3"):
         cli.load_config("no_such_recipe")
     assert cli.load_config("texture160_sr_cmde_conv3x3").model.conv_dispatch == "conv3x3_kernel"
