@@ -245,12 +245,32 @@ Phases, each printing its own line with its seconds:
    3-D twin at its 100 steps; ``--mode compute_dataset_statistics`` on the
    texture64 recipe (200 batches), its mean.npy (32, 32, 9) against a
    float64 host recomputation at 1e-5.
-23. result: a JSON line of the kernels (with each one's launches on the
-   paths of phases 10-22), the nvidia-smi line, and last
+23. main (the score_sde baselines, new; `configs/score_sde.py`): the texture
+   twins of `configs/ve/ncsnv2/celeba.py` (ncsnv2_64, 64px), `bedroom.py`
+   (ncsnv2_128, 128px), `configs/ve/ncsn/cifar10_124.py` (ncsn, 32px),
+   `configs/ve/cifar10_ncsnpp.py` (the discrete-VE NCSN++, 32px, FIR) and
+   `configs/vp/ddpm/cifar10.py` (the discrete DDPM, 32px), each at full
+   width with seeded N(0, 0.02) weights, their data flat PNG folders
+   written to a temp dir (the first 1,280 texture64 train images; the
+   texture160 train images resized to 128px once) and read by the
+   ``image`` datamodule.  The FIR kernels against plain at the NCSN++
+   twin's 6 shapes (counted on the meta device), timed as in phase 3, and
+   on against off on a 3-step sample of its sampler; each twin's sampler
+   (ALD for the NCSN twins, reverse diffusion + Langevin, ancestral
+   sampling) at B = 8 for about 20 score evaluations, the FIR counters
+   exact; `Trainer.fit` at each recipe's train batch (3 steps; 2 for the
+   128px twin, its batch halved until the step fits in the card's memory),
+   finite losses, every counter 0 (the NCSN++ train step's FIR calls carry
+   a gradient); then ``main.py --mode train --config
+   configs/ve/ncsnv2/celeba.py --data_path <twin dir>`` in-process for 2
+   steps (the path table's recipe, its n_iters cut by wrapping the table
+   entry for the call).
+24. result: a JSON line of the kernels (with each one's launches on the
+   paths of phases 10-23), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The step counts of the paths without a quality band (5-8, 10-12, 14, 18,
-21) are cut short to keep the whole run near 850 s; the time per
+21-23) are cut short to keep the whole run under about 1,100 s; the time per
 evaluation or step does not depend on them.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -261,6 +281,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import gc
 import itertools
 import json
 import math
@@ -312,6 +333,15 @@ from conditional_score_diffusion_tpu_torch.configs.inverse_problems import (  # 
     texture_mri_to_pet_slices_block_config,
     write_texture64_paired,
     write_texture_mri_to_pet,
+)
+from conditional_score_diffusion_tpu_torch.configs import score_sde  # noqa: E402
+from conditional_score_diffusion_tpu_torch.configs.score_sde import (  # noqa: E402
+    texture128_ncsnv2_bedroom_config,
+    texture32_ddpm_cifar10_vp_config,
+    texture32_ncsn_cifar10_124_config,
+    texture32_ncsnpp_cifar10_smld_config,
+    texture64_ncsnv2_celeba_config,
+    write_twin_folders,
 )
 from conditional_score_diffusion_tpu_torch.configs.multiscale import (  # noqa: E402
     texture160_sequential_master_config,
@@ -714,6 +744,23 @@ INVERSE_TWINS = [
 INVERSE_STEPS, INVERSE_TRAIN_STEPS = 20, 3  # each sampler cut from 1000 steps
 INVERSE_HARNESS_DRAWS, PAIRED3D_STEPS, STATS_BATCHES, STATS_TOL = [1, 2], 100, 200, 1e-5
 
+# Phase 23: the score_sde baselines on their texture twins (configs/score_sde.py):
+# (label, recipe, Trainer.fit steps at the recipe's train batch).
+SCORE_SDE_TWINS = [
+    ("NCSNv2 64px (ve/ncsnv2/celeba)", texture64_ncsnv2_celeba_config, 3),
+    ("NCSNv2 128px (ve/ncsnv2/bedroom)", texture128_ncsnv2_bedroom_config, 2),
+    ("NCSN 32px (ve/ncsn/cifar10_124)", texture32_ncsn_cifar10_124_config, 3),
+    ("NCSN++ SMLD 32px (ve/cifar10_ncsnpp)", texture32_ncsnpp_cifar10_smld_config, 3),
+    ("DDPM 32px (vp/ddpm/cifar10)", texture32_ddpm_cifar10_vp_config, 3),
+]
+# FIR calls of one forward of the discrete-VE NCSN++ twin (32px, B=8): the
+# BigGAN down blocks at 32/16/8 and up blocks at 4/8/16, h and x each; its
+# residual input pyramid resamples through the fused FIR conv (plain).
+# The other twins call no kernel.
+SCORE_SDE_FIR_PER_FORWARD = {"fir_upsample2": 6, "fir_downsample2": 6}
+SCORE_SDE_EVALS, SCORE_SDE_BATCH, SCORE_SDE_SHORT, SCORE_SDE_CLI_STEPS = 20, 8, 3, 2
+SCORE_SDE_CLI_RECIPE = "configs/ve/ncsnv2/celeba.py"
+
 WRAPPERS = {
     "gn_silu_conv3x3": fused_tail.gn_silu_conv3x3,
     "resblock_fused": fused_block.resblock_fused,
@@ -1100,9 +1147,10 @@ def rotated(fn, x, nbytes):
     return call
 
 
-def check_fir(yardsticks=True):
+def check_fir(yardsticks=True, shapes=FIR_SHAPES):
     """Both FIR kernels against plain at the 20 shapes of one NCSN++
-    forward, float32 (1e-5 of the largest magnitude) and bfloat16 (2e-2),
+    forward (or ``shapes``: (kernel, H, C, calls per forward)), float32
+    (1e-5 of the largest magnitude) and bfloat16 (2e-2),
     and with a non-symmetric kernel at two shapes; returns per-shape rows
     with times (CUDA events over 100 calls): ``ms`` with the operands out of
     L2 (`rotated`), beside the plain version, the library call (both
@@ -1110,7 +1158,7 @@ def check_fir(yardsticks=True):
     over and over (L2-resident up to 50 MB).  Without
     ``yardsticks`` the plain version and the library call are not timed."""
     rows = []
-    for name, h, c, calls in FIR_SHAPES:
+    for name, h, c, calls in shapes:
         kernel, plain = WRAPPERS[name], getattr(fir, f"{name}_plain")
         out_h = 2 * h if name == "fir_upsample2" else h // 2
         for dtype in (torch.float32, torch.bfloat16):
@@ -3365,6 +3413,146 @@ def run_inverse_problems():
     return paths, agree, rows
 
 
+# ---- the score_sde baselines (phase 23) ---------------------------------------
+
+
+def fit_largest_batch(label, config, steps):
+    """`run_trainer` at the recipe's train batch, halved until the step fits
+    in the card's memory; returns the result and the batch it ran at."""
+    zeros = {name: 0 for name in WRAPPERS}
+    batch = config.training.batch_size
+    while True:
+        c = copy.deepcopy(config)
+        c.training.batch_size = batch
+        c.training.log_freq, c.training.eval_freq, c.training.snapshot_freq = 1, 10**9, 10**9
+        try:
+            return run_trainer(f"float32 {label} trainer, B={batch}", c, steps, zeros, evals=0, restore=False), batch
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"  {label}: the train step at B={batch} does not fit: {str(e).splitlines()[0]}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if batch == 1:
+            raise RuntimeError(f"{label}: no train batch fits")
+        batch //= 2
+
+
+def run_score_sde_cli(root):
+    """``main.py --mode train --config configs/ve/ncsnv2/celeba.py
+    --data_path <root>`` in-process: the recipe from the path table
+    (`configs/score_sde.py`), its ``n_iters`` cut to 2 (and every step
+    logged) by wrapping that table entry for the call; ``<root>/CELEBA`` is
+    the twin's texture64 folder."""
+    key = score_sde.recipe_key(SCORE_SDE_CLI_RECIPE)
+    real = score_sde.RECIPES[key]
+
+    def cut():
+        config = real()
+        config.training.n_iters, config.training.log_freq = SCORE_SDE_CLI_STEPS, 1
+        return config
+
+    os.symlink(os.path.join(root, score_sde.TEXTURE64_FOLDER), os.path.join(root, real().data.dataset))
+    t = time.perf_counter()
+    score_sde.RECIPES[key] = cut
+    try:
+        with tempfile.TemporaryDirectory() as log_path:
+            zero_launches()
+            cli.main(["--mode", "train", "--config", SCORE_SDE_CLI_RECIPE, "--data_path", root, "--log_path", log_path])
+            launches = read_launches()
+            scalars = read_scalars(os.path.join(log_path, "scalars.jsonl"))
+            failures = callback_failures_logged(log_path)
+            saved = sorted(os.listdir(os.path.join(log_path, "checkpoints")))
+    finally:
+        score_sde.RECIPES[key] = real
+    wall = time.perf_counter() - t
+    losses = [(step, v) for tag, v, step in scalars if tag == "train_loss"]
+    ms = [v for tag, v, _ in scalars if tag == "ms_per_step"]
+    ok = ([step for step, _ in losses] == list(range(1, SCORE_SDE_CLI_STEPS + 1))
+          and all(math.isfinite(v) for _, v in losses) and not failures and not any(launches.values()))
+    phase("main", t, f"CLI --mode train --config {SCORE_SDE_CLI_RECIPE} --data_path {root}: {wall:.3f} s,"
+                     f" train_loss {losses}, ms_per_step {ms}, checkpoints {saved}, callback failures {failures},"
+                     f" launches {launches} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the score_sde recipe by path did not train through the CLI as expected")
+    return dict(path=f"CLI train {SCORE_SDE_CLI_RECIPE}", steps=SCORE_SDE_CLI_STEPS, wall_s=wall, train_loss=losses,
+                ms_per_step=ms, launches=launches)
+
+
+def run_score_sde():
+    """Phase 23: the score_sde baselines (NCSN, NCSNv2 64 / 128, the
+    discrete-VE NCSN++ and the discrete DDPM) on their texture twins."""
+    t = time.perf_counter()
+    directory = tempfile.mkdtemp(prefix="score_sde_")
+    try:
+        write_twin_folders(directory, os.path.join(REPO, "datasets"))
+        twins = [(label, recipe(directory), steps) for label, recipe, steps in SCORE_SDE_TWINS]
+        calls = {label: forward_calls(config, SCORE_SDE_BATCH) for label, config, _ in twins}
+        phase("setup", t, f"twin folders under {directory}: {score_sde.TEXTURE64_FOLDER}"
+                          f" ({len(os.listdir(os.path.join(directory, score_sde.TEXTURE64_FOLDER)))} PNGs),"
+                          f" {score_sde.TEXTURE128_FOLDER}"
+                          f" ({len(os.listdir(os.path.join(directory, score_sde.TEXTURE128_FOLDER)))} PNGs);"
+                          f" kernel calls per forward {({k: dict(v) for k, v in calls.items()})}")
+        ncsnpp_label = SCORE_SDE_TWINS[3][0]
+        for label, _, _ in twins:
+            want = SCORE_SDE_FIR_PER_FORWARD if label == ncsnpp_label else {}
+            if per_name(calls[label]) != want:
+                raise RuntimeError(f"{label}: kernel calls per forward {per_name(calls[label])}, expected {want}")
+
+        t = time.perf_counter()
+        shapes = [(name, h, c, n) for (name, h, w, c), n in sorted(calls[ncsnpp_label].items())]
+        fir_rows = check_fir(shapes=shapes)
+        for r in fir_rows:
+            r["path"] = "discrete-VE NCSN++ 32px"
+        phase("kernel", t, f"FIR kernels against plain at the 32px NCSN++ twin's {len(shapes)} shapes, timed")
+
+        paths, agree = [], None
+        for label, config, _ in twins:
+            t = time.perf_counter()
+            model = init_model_random(config, seed=config.seed, device="cuda")
+            sde, eps = build_sde(config)
+            shape = (SCORE_SDE_BATCH, config.data.image_size, config.data.image_size, config.data.num_channels)
+            per_step = evaluations_per_step(config)
+            steps = math.ceil(SCORE_SDE_EVALS / per_step)
+
+            def sample(p_steps, seed=config.seed, model=model, config=config, sde=sde, eps=eps, shape=shape):
+                fn = get_sampling_fn(config, sde, shape, eps, p_steps=p_steps)
+                with torch.no_grad():
+                    return fn(torch.Generator(device="cuda").manual_seed(seed), model)[0]
+
+            phase("setup", t, f"{label}: {sum(p.numel() for p in model.parameters())} parameters,"
+                              f" {type(sde).__name__} N={sde.N}, {config.sampling.predictor} +"
+                              f" {config.sampling.corrector} x {config.sampling.n_steps_each}: {per_step} score"
+                              f" evaluations a step, {steps} steps")
+            if label == ncsnpp_label:  # the FIR kernels on against their plain versions on a short sample
+                t = time.perf_counter()
+                zero_launches()
+                got = sample(SCORE_SDE_SHORT)
+                launches = read_launches()
+                with plain_versions():
+                    want = sample(SCORE_SDE_SHORT)
+                expected = expect_launches(label, launches, SCORE_SDE_FIR_PER_FORWARD, per_step * SCORE_SDE_SHORT)
+                agree = dict(path=f"float32 {label} FIR kernels vs plain", tol=FIR_AGREE_TOL,
+                             sample_rel_err=rel_err(got, want), launches=launches)
+                ok = agree["sample_rel_err"] <= FIR_AGREE_TOL
+                phase("agreement", t, f"{agree['path']}: {SCORE_SDE_SHORT}-step sample rel err"
+                                      f" {agree['sample_rel_err']:.3e} (tol {FIR_AGREE_TOL:.0e}), launches"
+                                      f" {launches} (expected {expected}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise RuntimeError(f"{label}: the FIR kernels disagree with their plain versions")
+            sample(1)  # so that the timed window holds no first call's cost
+            paths.append(run_sampler(f"float32 {label} sampler", lambda: sample(steps), per_name(calls[label]), steps,
+                                     shape=shape, evals_per_step=per_step))
+            del model
+
+        for label, config, steps in twins:
+            result, batch = fit_largest_batch(label, config, steps)
+            result["recipe_batch"], result["batch"] = config.training.batch_size, batch
+            paths.append(result)
+        paths.append(run_score_sde_cli(directory))
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    return paths, agree, fir_rows
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3556,6 +3744,10 @@ def main() -> int:
     inverse_paths, agree_inverse, inverse_rows = run_inverse_problems()
     new_paths += inverse_paths
 
+    # ---- the score_sde baselines on their texture twins
+    score_sde_paths, agree_score_sde, score_sde_fir_rows = run_score_sde()
+    new_paths += score_sde_paths
+
     bf16 = torch.bfloat16
     tail_line = per_forward_row(
         "gn_silu_conv3x3", "conditional_score_diffusion_tpu_torch/csrc/gn_silu_conv3x3.cu",
@@ -3604,10 +3796,18 @@ def main() -> int:
         )
         for line, dtype in ((k, torch.float32), (k["bfloat16"], bf16)):
             line["l2_ms"] = sum(r["l2_ms"] * r["calls_per_forward"] for r in rows if r["dtype"] == dname(dtype))
+        ncsnpp32 = next(p for p in score_sde_paths if p["path"] == f"float32 {SCORE_SDE_TWINS[3][0]} sampler")
+        k["float32_ncsnpp_32px"] = per_forward_row(
+            name, k["source"], k["replaces"], ncsnpp32["launches"][name],
+            [r for r in score_sde_fir_rows if r["kernel"] == name], torch.float32, "calls_per_forward",
+            f"one forward of the float32 discrete-VE NCSN++ twin (32px, B=8): its"
+            f" {SCORE_SDE_FIR_PER_FORWARD[name]} calls; launches are its sampler's",
+        )
         kernels.append(k)
     for k in kernels:
         k["per_shape"] = [
             r for r in tail_rows + harness_tail_rows + ncsnpp_tail_rows + block_rows + fir_rows + inverse_rows
+            + score_sde_fir_rows
             if r.get("kernel", "gn_silu_conv3x3") == k["name"]
         ]
     f32 = conv_sums(conv_rows, torch.float32)
@@ -3658,7 +3858,7 @@ def main() -> int:
         k["launches_other_paths"] = {p["path"]: p["launches"][name] for p in new_paths if p["launches"][name]}
     paths = [main_new, main_tail, main_ncsnpp, main_train, main_train_off, main_harness] + new_paths
     agree += [agree_train, agree_texture64] + agree_estimators + [agree_uncond, agree_pyramid] + agree_sequential
-    agree += [agree_direct, agree_haar] + agree_inverse
+    agree += [agree_direct, agree_haar] + agree_inverse + [agree_score_sde]
     print(json.dumps({"kernels": kernels, "paths": paths, "agreement": agree}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

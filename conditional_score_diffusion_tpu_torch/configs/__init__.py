@@ -40,6 +40,13 @@ from .multiscale import (
     texture64_multiscale_master_block_config,
     texture64_multiscale_master_config,
 )
+from .score_sde import (
+    texture128_ncsnv2_bedroom_config,
+    texture32_ddpm_cifar10_vp_config,
+    texture32_ncsn_cifar10_124_config,
+    texture32_ncsnpp_cifar10_smld_config,
+    texture64_ncsnv2_celeba_config,
+)
 from .srflow import df2k_config, hq160_direct_8x_config, hq160_sequential_config
 from .texture160_kxsr_ncsnpp import get_config as texture160_kxsr_ncsnpp_config
 from .texture160_kxsr_ncsnpp_block import get_config as texture160_kxsr_ncsnpp_block_config
@@ -77,6 +84,7 @@ __all__ = [
     "inverse_problem_config",
     "mri_to_pet_config",
     "synthetic_config",
+    "texture128_ncsnv2_bedroom_config",
     "texture160_colorization_cmde_block_config",
     "texture160_direct_8x_block_config",
     "texture160_direct_8x_config",
@@ -96,12 +104,16 @@ __all__ = [
     "texture160_sr_vscmde_config",
     "texture160_sr_vscmde_slow_config",
     "texture160_unconditional_ncsnpp_config",
+    "texture32_ddpm_cifar10_vp_config",
+    "texture32_ncsn_cifar10_124_config",
+    "texture32_ncsnpp_cifar10_smld_config",
     "texture64_haar_multiscale_unconditional_block_config",
     "texture64_haar_multiscale_unconditional_config",
     "texture64_haar_scale_config",
     "texture64_i2i_cmde_block_config",
     "texture64_multiscale_master_block_config",
     "texture64_multiscale_master_config",
+    "texture64_ncsnv2_celeba_config",
     "texture64_sr_cmde_config",
     "texture64_sr_cmde_test_config",
     "texture64_sr_dv_config",

@@ -276,13 +276,19 @@ def _recipes() -> Dict[str, Callable[[], Config]]:
 RECIPES = _recipes()
 
 
+def path_key(name: str) -> str:
+    """A recipe file's path (``configs/ve/ncsnv2/celeba.py``) as a table
+    key (``ve/ncsnv2/celeba``); a key stays as it is."""
+    key = os.path.normpath(name).replace(os.sep, "/")
+    key = key[: -len(".py")] if key.endswith(".py") else key
+    return key[len("configs/") :] if key.startswith("configs/") else key
+
+
 def recipe_key(name: str):
     """The :data:`RECIPES` key ``name`` names (a key, or a path to its file
     such as ``configs/ve/inverse_problems/inpainting/celebA_ours_NDV.py``),
     else None."""
-    key = os.path.normpath(name).replace(os.sep, "/")
-    key = key[: -len(".py")] if key.endswith(".py") else key
-    key = key[len("configs/") :] if key.startswith("configs/") else key
+    key = path_key(name)
     return key if key in RECIPES else None
 
 

@@ -9,7 +9,7 @@ get_datamodule = registry.datamodules.get
 # JAX datamodules the port lacks, and the ROADMAP.md item that ports them
 NOT_PORTED = {
     name: "ROADMAP.md section 1, item 12"
-    for name in ("image", "haar_multiscale", "bicubic_multiscale")
+    for name in ("haar_multiscale", "bicubic_multiscale")
 }
 
 
@@ -22,6 +22,7 @@ def create_datamodule(config):
     return get_datamodule(name)(config)
 
 
+from . import image_folder  # noqa: E402,F401
 from . import paired  # noqa: E402,F401
 from . import pkl_datasets  # noqa: E402,F401
 from . import synthetic  # noqa: E402,F401

@@ -14,9 +14,10 @@
 
 ``--config`` is a recipe of `configs` by name (``texture160_sr_cmde_conv3x3``
 for `configs.texture160_sr_cmde_conv3x3_config`), the path of a JAX recipe
-file that `configs.inverse_problems.RECIPES` copies
-(``configs/ve/inverse_problems/inpainting/celebA_ours_NDV.py``, read from
-the table, not the file) or the path of a Python file whose
+file that `configs.inverse_problems.RECIPES` or `configs.score_sde.RECIPES`
+copies (``configs/ve/inverse_problems/inpainting/celebA_ours_NDV.py``,
+``configs/ve/ncsnv2/celeba.py``; read from the table, not the file) or the
+path of a Python file whose
 ``get_config()`` returns a `configs.Config`; for
 ``evaluation_pipeline`` it may also be a master config (a `Config` of leaf
 recipes, JAX `run_lib.py:evaluation_pipeline`), and for
@@ -42,11 +43,12 @@ MODES = ["train", "test", "multi_scale_test", "compute_dataset_statistics", "eva
 def load_config(name: str):
     """A recipe by name, by the path of a JAX recipe file the port copies,
     or from a file that defines ``get_config()``."""
-    from .configs.inverse_problems import RECIPES, recipe_key
+    from .configs import inverse_problems, score_sde
 
-    key = recipe_key(name)
-    if key is not None:
-        return RECIPES[key]()
+    for table in (inverse_problems, score_sde):
+        key = table.recipe_key(name)
+        if key is not None:
+            return table.RECIPES[key]()
     if name.endswith(".py") or os.path.sep in name:
         spec = importlib.util.spec_from_file_location("recipe", name)
         module = importlib.util.module_from_spec(spec)

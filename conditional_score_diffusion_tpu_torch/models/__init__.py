@@ -30,7 +30,10 @@ def create_model(config, device="cuda") -> nn.Module:
 def init_model_random(config, seed: int = 0, scale: float = 0.02, device="cuda") -> nn.Module:
     """Counterpart of the JAX `init_model_shapes_only`: the model with every
     parameter drawn from N(0, scale) by a generator seeded with ``seed``,
-    except GroupNorm scales (ones) and biases (zeros).
+    except GroupNorm scales (ones), biases (zeros, and the NCSN norms'
+    ``beta``) and the NCSN norms' scales and class tables (``alpha``,
+    ``gamma``, ``embedding``: 1 + N(0, scale), their own init's form, so a
+    norm does not scale its output by ~``scale``).
 
     The DDPM init zeroes every conv1 and conv_out, so a freshly initialized
     network outputs exactly 0 and the Langevin corrector, which divides by
@@ -46,8 +49,10 @@ def init_model_random(config, seed: int = 0, scale: float = 0.02, device="cuda")
             leaf = name.rsplit(".", 1)[-1]
             if leaf == "weight" and p.ndim == 1:  # GroupNorm scale
                 p.fill_(1.0)
-            elif leaf == "bias":
+            elif leaf in ("bias", "beta"):
                 p.zero_()
+            elif leaf in ("alpha", "gamma", "embedding"):
+                p.normal_(1.0, scale, generator=gen)
             else:
                 p.normal_(0.0, scale, generator=gen)
     return model
@@ -58,5 +63,6 @@ from . import ddpm  # noqa: E402,F401
 from . import ddpm3d  # noqa: E402,F401
 from . import fcn  # noqa: E402,F401
 from . import ncsnpp  # noqa: E402,F401
+from . import ncsnv2  # noqa: E402,F401
 
 __all__ = ["register_model", "get_model", "create_model", "init_model_random"]

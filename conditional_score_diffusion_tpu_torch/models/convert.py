@@ -13,6 +13,10 @@ Module names are the same on both sides (`models/ddpm.py`,
   * ``bias``                      <-> ``bias``
   * NCSN++ Fourier ``W`` (C,)     <-> the buffer ``W``
   * FIR resampler ``conv_w`` HWIO <-> ``conv_w`` OIHW, ``conv_b`` <-> ``conv_b``
+  * the NCSN norms' ``alpha`` / ``gamma`` / ``beta`` (C,) and their
+    class tables ``embed/embedding`` (classes, k C) as they are
+    (`models/normalization.py`); NCSN's dilated convs are plain conv
+    ``kernel``s
 
 The split banks (SplitGroupNorm, SplitConv3x3, SplitConv1x1, SplitNIN) hold
 the same parameters as their joint modules, so they need nothing of their
@@ -29,12 +33,16 @@ import numpy as np
 import torch
 
 
+# leaves carried under their own name, unchanged
+_AS_IS = ("W", "conv_b", "alpha", "gamma", "beta", "embedding")
+
+
 def _leaf_to_torch(name: str, value: np.ndarray):
     if name in ("kernel", "conv_w") and value.ndim == 4:
         return "weight" if name == "kernel" else name, np.transpose(value, (3, 2, 0, 1))
     if name == "kernel" and value.ndim == 5:
         return "weight", np.transpose(value, (4, 3, 0, 1, 2))
-    if name in ("W", "conv_b") and value.ndim == 1:
+    if name in _AS_IS:
         return name, value
     if name == "kernel" and value.ndim == 2:
         return "weight", value.T
@@ -75,7 +83,7 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             leaf, arr = "kernel", arr.T
         elif leaf == "weight" and arr.ndim == 1:
             leaf = "scale"
-        elif leaf not in ("bias", "W", "conv_b"):
+        elif leaf != "bias" and leaf not in _AS_IS:
             raise KeyError(f"no Flax counterpart for {key!r}")
         node = params
         for p in path:

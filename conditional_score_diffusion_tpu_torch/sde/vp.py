@@ -76,6 +76,9 @@ class VPSDE(_BetaLinear):
     def alphas_cumprod(self, device) -> torch.Tensor:
         return self._ladder(device)[2]
 
+    def sqrt_alphas_cumprod(self, device) -> torch.Tensor:
+        return torch.sqrt(self.alphas_cumprod(device))
+
     def sqrt_1m_alphas_cumprod(self, device) -> torch.Tensor:
         return torch.sqrt(1.0 - self.alphas_cumprod(device))
 

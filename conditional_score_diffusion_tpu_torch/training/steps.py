@@ -88,6 +88,14 @@ def _first(batch) -> torch.Tensor:
     return batch if torch.is_tensor(batch) else next(iter(batch.values()))
 
 
+def _pop_times(noise) -> Dict[str, torch.Tensor]:
+    """The time draws of an injected ``noise`` dict, taken out of it: the
+    continuous losses' ``t``, the discrete losses' integer ``labels``."""
+    if noise is None:
+        return {}
+    return {k: noise.pop(k) for k in ("t", "labels") if k in noise}
+
+
 def make_train_step(config, model: torch.nn.Module, data_mean=None) -> Callable:
     """``train_step(state, batch, noise=None, events=None) -> metrics``.
 
@@ -98,9 +106,10 @@ def make_train_step(config, model: torch.nn.Module, data_mean=None) -> Callable:
     number (the JAX scan's order), and one optimizer and EMA update is
     made: the large batch's update with micro-batch activation memory.
 
-    ``noise``: the full batch's ``t`` and per-domain noise (a dict with key
-    ``'t'`` and the domains; unconditional: ``'x'``), split like the batch,
-    in place of the draws.
+    ``noise``: the full batch's ``t`` (a discrete recipe: ``labels``) and
+    per-domain noise (a dict with key ``'t'`` or ``'labels'`` and the
+    domains; unconditional: ``'x'``), split like the batch, in place of the
+    draws.
     ``events``: a list to which CUDA events are appended at the start, after
     the forward and loss, after the backward and after the update (one
     micro-batch); for timing one step.
@@ -135,8 +144,8 @@ def make_train_step(config, model: torch.nn.Module, data_mean=None) -> Callable:
             seed = step_seed(config.seed, state.step, i)
             with seeded(seed, device):
                 gen = torch.Generator(device=device).manual_seed(seed)
-                t = None if mb_noise is None else mb_noise.pop("t")
-                loss_i = loss_fn(sde, mb, generator=gen, t=t, noise=mb_noise)
+                draws = _pop_times(mb_noise)
+                loss_i = loss_fn(sde, mb, generator=gen, noise=mb_noise, **draws)
                 mark(events)
                 loss_i.backward()
             mark(events)
@@ -161,9 +170,9 @@ def make_eval_step(config, model: torch.nn.Module, data_mean=None, use_ema: bool
     def eval_step(state: TrainState, batch, generator: Optional[torch.Generator] = None, noise=None) -> Dict[str, Any]:
         params = state.ema.params if use_ema else None
         noise = dict(noise or {})
-        t = noise.pop("t", None)
+        draws = _pop_times(noise)
         with torch.no_grad():
-            loss = loss_fn(sde_fn(state.step), batch, generator=generator, t=t, noise=noise or None, params=params)
+            loss = loss_fn(sde_fn(state.step), batch, generator=generator, noise=noise or None, params=params, **draws)
         return {"eval_loss": loss}
 
     return eval_step

@@ -9,9 +9,12 @@
   ``callback_noise`` hook: every array the port hands its writer equals the
   one the JAX callback hands a recording stand-in writer, set on a stub
   trainer, at 1e-4 of its largest magnitude (images in [0, 1]; the 2-D
-  scatter's points; the score-norm curve).  ``paired3D`` has no 3-D model
-  yet (ROADMAP.md section 1, item 9), so both packages run it on a stub
-  task whose sampler returns the same volumes: the frames and the scalar.
+  scatter's points; the score-norm curve).  ``paired3D`` runs in both
+  packages on a stub task whose sampler returns the same volumes (the
+  frames and the scalar): JAX's callback cannot run on the 3-D recipe,
+  whose ``data.shape_x`` has four entries where its ``_xshape`` unpacks
+  three (ROADMAP.md section 3); `test_torch_ddpm3d.py` runs the port's on
+  the 3-D model.
 * `_FreqGated` fires at the same steps.
 * A callback that fails half way through its sampler is counted, logged as
   JAX logs it, and leaves the model's parameters, train mode, the EMA and

@@ -71,5 +71,7 @@ def test_port_imports_without_jax():
         "data.pkl_datasets", "data.synthetic", "models.fcn", "configs.toy", "eval.toy",
         "sampling.odeint", "sampling.ode", "sampling.likelihood", "sampling.controllable", "eval.bpd",
         "data.degradations", "data.paired", "data.statistics", "configs.inverse_problems", "models.ddpm3d",
+        "models.ncsnv2", "models.normalization", "losses.discrete", "data.image_folder", "configs.song",
+        "configs.ncsn_legacy", "configs.score_sde",
     ):
         assert f"conditional_score_diffusion_tpu_torch.{name}" in names, name

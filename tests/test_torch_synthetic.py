@@ -80,14 +80,19 @@ def test_datamodule_batches_match_jax(dataset_type):
 
 
 def test_unported_datamodules_name_their_item():
-    """The datamodules still to port name their ROADMAP item; ``paired`` and
-    ``DUAL-GLOW`` are ported (`data/paired.py`): they build, and read their
-    A/B tree at setup."""
+    """The datamodules still to port name their ROADMAP item; ``image``
+    (`data/image_folder.py`), ``paired`` and ``DUAL-GLOW`` (`data/paired.py`)
+    are ported: they build, and read their folder or A/B tree at setup."""
     config = synthetic_config()
-    for name in ("image", "haar_multiscale", "bicubic_multiscale"):
+    for name in ("haar_multiscale", "bicubic_multiscale"):
         config.data.datamodule = name
         with pytest.raises(NotImplementedError, match="item 12"):
             create_datamodule(config)
+    config.data.datamodule, config.data.base_dir, config.data.dataset = "image", "no_such_dir", "images"
+    dm = create_datamodule(config)
+    assert type(dm).__name__ == "ImageDataModule"
+    with pytest.raises(FileNotFoundError):
+        dm.setup()
     for name in ("paired", "DUAL-GLOW"):
         config.data.datamodule, config.data.base_dir, config.data.dataset = name, "no_such_dir", "pairs"
         dm = create_datamodule(config)
