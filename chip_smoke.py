@@ -95,7 +95,8 @@ Phases, each printing its own line with its seconds:
    Then the same for 3 steps with the policy off (every counter 0).  Each
    prints ms per step and images/s over the sustained window, the peak
    memory, and one step split by CUDA events.
-9. main (the --mode test harness, new): `run_test` with the recipe
+9. main (the --mode test harness, new; in a child process, see below):
+   `run_test` with the recipe
    `texture64_sr_cmde_test` on test batch 0 (16 images, y = 4x SR
    degradation): the trained texture64 EMA (13,644,550 parameters, the
    committed torch file), draws 2, 3, 4 at snr 0.15, 1000 steps, float32
@@ -141,7 +142,8 @@ Phases, each printing its own line with its seconds:
    one Langevin step's size against (snr |z| / |score|)^2 2 alpha with
    alpha = alphas[timestep] under VP (1e-5); a loss and backward with finite
    gradients; no kernel runs, so every counter reads 0.
-13. main (the trained texture64 Haar pyramid, new): ``main.py --mode
+13. main (the trained texture64 Haar pyramid, new; in a child process):
+   ``main.py --mode
    multi_scale_test --config texture64_multiscale_master`` in-process: the
    two VS-CMDE detail scales (16px DC -> 32px -> 64px, ddpm_paired nf=48)
    with their converted EMA files, sigma_y at each checkpoint's step,
@@ -165,7 +167,8 @@ Phases, each printing its own line with its seconds:
    random weights, the first 8 texture160 test images, y their 20px
    bicubic LQ: kernels on against off (`agreement`), then 5 steps with
    fused_block and fused_tail, the flagship's calls per forward.
-16. main (the GaussianBubbles toy through the CLI, new): ``main.py --mode
+16. main (the GaussianBubbles toy through the CLI, new; in a child
+   process): ``main.py --mode
    train --config toy_gaussian_bubbles`` in-process (the FCN, 10,000 steps
    of B=256, the ``2D`` callback every 2,000 steps at its full 500 steps),
    ms per step over the sustained windows; then 4,000 PC samples (500
@@ -173,7 +176,8 @@ Phases, each printing its own line with its seconds:
    `scripts/head_to_head.py` scores them (`eval/toy.py`): mode mass max
    deviation and energy distance in `TOY_BAND` (set from the JAX run's
    spread over three seeds); no callback failure logged; no kernel runs.
-17. main (the paired callback at full length, new): a `Trainer` on
+17. main (the paired callback at full length, new; in a child process):
+   a `Trainer` on
    `texture64_sr_cmde` with the committed EMA, float32 with the fused tail
    (the harness's knobs), its ``paired`` callback fired once: 1000 steps
    on the first 8 test images; the tail counted exactly (its calls per
@@ -239,7 +243,7 @@ Phases, each printing its own line with its seconds:
    at B = 8 for 20 of its 1000 steps, every counter exact; `Trainer.fit(3)`
    of all five twins at their recipes' train batches (25, 25, 50, 32, 4
    volumes), finite losses, kernels 1-3 at 0 under the gradient; `run_test`
-   on the inpainting twin (test batch 0 of 25, draws 1 and 2, 20 steps),
+   on the inpainting twin (test batch 0 of 25, draws 1 and 2, 10 steps),
    then the evaluation pipeline on its tree, whose masks re-rolled from
    the PNG numbers must be the batch's; the ``paired3D`` callback on the
    3-D twin at its 100 steps; ``--mode compute_dataset_statistics`` on the
@@ -265,13 +269,47 @@ Phases, each printing its own line with its seconds:
    configs/ve/ncsnv2/celeba.py --data_path <twin dir>`` in-process for 2
    steps (the path table's recipe, its n_iters cut by wrapping the table
    entry for the call).
-24. result: a JSON line of the kernels (with each one's launches on the
-   paths of phases 10-23), the nvidia-smi line, and last
+24. main (the celebA multi-scale recipes and the Haar-flow trainer, new;
+   `configs/srflow.py`, `configs/extra.py`): the texture160 train images
+   written as celebA JPEGs, the recipes' Haar trees built from them by
+   `data/builder.py` (celebA 160 / 80 / 40, celebaHQ 128),
+   and celebA's fixed split in symbolic links for ``bicubic_multiscale``
+   (the test images past file 162,770), the builds' seconds and each
+   datamodule's ms a batch; kernels 1-3 per forward of the seven recipes'
+   _block variants against `MULTISCALE_PER_FORWARD` (meta device) and
+   against plain at the 17 sites no earlier phase checked (down to 2x2 at
+   384 channels), timed; ``main.py --mode train --config
+   configs/ve/srflow/celebA/haar/config_40.py`` in-process for 2 steps
+   (``ddpm_paired`` nf 128, B=128), `Trainer.fit(2)` of
+   `celeba_bicubic_config(160)` (``ddpm_SR`` nf 128 at 160px, B=32) and
+   `haarflow_config(128)` (``ddpm`` nf 128 on 12 channels at 64x64,
+   B=32), each batch halved only where the step does not fit; both celebA
+   master files by path (the bicubic one chained in the bicubic space it
+   needs; its file names none, and JAX's default, haar, cannot chain it)
+   with random weights, kernels on against off over 3 steps a scale, then
+   ``--mode multi_scale_test`` by path over 10 steps a scale, every launch
+   at its count.
+25. agreement / main (the perceptual metrics, new; `eval/inception.py`,
+   `eval/lpips.py`, `eval/fid.py`): seeded synthetic weights written as
+   the reference files; Inception taps 0-3 and LPIPS of 8 texture160 test
+   images on the card (float32, TF32 off) against the CPU in float64
+   (1e-4), FID and joint FID from both (1e-3), timed; then the evaluation
+   pipeline with ``CSDT_INCEPTION_WEIGHTS`` / ``CSDT_LPIPS_ALEXNET`` /
+   ``CSDT_LPIPS_LIN`` set reports ``lpips``, ``fid``, ``joint_fid`` and
+   ``best_25_lpips_ids``.
+26. result: a JSON line of the kernels (with each one's launches on the
+   paths of phases 10-25), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The step counts of the paths without a quality band (5-8, 10-12, 14, 18,
-21-23) are cut short to keep the whole run under about 1,100 s; the time per
-evaluation or step does not depend on them.
+21-24) are cut short; the time per evaluation or step does not depend on
+them.  The quality-gated phases keep their full length and are host-bound,
+so they run in three child processes of this script (`Child`: phase 9;
+16; 17 and 13), started after phase 10 and joined before
+phase 22, while this process runs phases 11, 12, 14, 15 and 18-21, none of
+which times a kernel.  Their lines are printed when they are joined; the
+host times of phases 9-21 are taken with four processes on the card.
+Every phase's progress also goes to stderr with the run's seconds.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -286,16 +324,19 @@ import itertools
 import json
 import math
 import os
+import pickle
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from PIL import Image
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
@@ -347,6 +388,13 @@ from conditional_score_diffusion_tpu_torch.configs.multiscale import (  # noqa: 
     texture160_sequential_master_config,
     write_texture160_sequential_data,
 )
+from conditional_score_diffusion_tpu_torch.configs.extra import haarflow_config  # noqa: E402
+from conditional_score_diffusion_tpu_torch.configs.srflow import celeba_bicubic_config, celeba_haar_config  # noqa: E402
+from conditional_score_diffusion_tpu_torch.data import sr_multiscale  # noqa: E402
+from conditional_score_diffusion_tpu_torch.data.builder import create_dataset, create_haar_dataset  # noqa: E402
+from conditional_score_diffusion_tpu_torch.eval import inception as fid_inception  # noqa: E402
+from conditional_score_diffusion_tpu_torch.eval import lpips as lpips_metric  # noqa: E402
+from conditional_score_diffusion_tpu_torch.eval.fid import fid_from_activations, joint_fid_from_activations  # noqa: E402
 from conditional_score_diffusion_tpu_torch.data.degradations import (  # noqa: E402
     bicubic_lq_images,
     grayscale,
@@ -360,7 +408,7 @@ from conditional_score_diffusion_tpu_torch.data.pkl_datasets import (  # noqa: E
 from conditional_score_diffusion_tpu_torch.data import create_datamodule, statistics  # noqa: E402
 from conditional_score_diffusion_tpu_torch.eval import bpd as bpd_eval  # noqa: E402
 from conditional_score_diffusion_tpu_torch.eval import multiscale  # noqa: E402
-from conditional_score_diffusion_tpu_torch.eval.harness import load_model, output_dir, run_test  # noqa: E402
+from conditional_score_diffusion_tpu_torch.eval.harness import load_model, output_dir, run_test, save_png  # noqa: E402
 from conditional_score_diffusion_tpu_torch.eval import pipeline as eval_pipeline  # noqa: E402
 from conditional_score_diffusion_tpu_torch.eval.metrics import ConsistencyUnavailable, get_consistency_fn  # noqa: E402
 from conditional_score_diffusion_tpu_torch.eval.metrics import psnr as psnr_fn  # noqa: E402
@@ -375,6 +423,7 @@ from conditional_score_diffusion_tpu_torch.models.wrappers import (  # noqa: E40
 )
 from conditional_score_diffusion_tpu_torch.ops import conv3x3, fir, fused_act, fused_block, fused_tail  # noqa: E402
 from conditional_score_diffusion_tpu_torch.ops.fused_tail import conv3x3_nhwc  # noqa: E402
+from conditional_score_diffusion_tpu_torch.ops.resize import full_float32  # noqa: E402
 from conditional_score_diffusion_tpu_torch.ops.upfirdn import setup_kernel  # noqa: E402
 from conditional_score_diffusion_tpu_torch.profile_sampler import plain_versions, sampler_sde  # noqa: E402
 from conditional_score_diffusion_tpu_torch.profile_train_step import (  # noqa: E402
@@ -742,6 +791,7 @@ INVERSE_TWINS = [
     ("MRI->PET slices", texture_mri_to_pet_slices_block_config, True, SITES_MRI),
 ]
 INVERSE_STEPS, INVERSE_TRAIN_STEPS = 20, 3  # each sampler cut from 1000 steps
+INVERSE_HARNESS_STEPS = 10  # the inpainting harness's, cut from 20 in PR 18 to make room for phases 24-25
 INVERSE_HARNESS_DRAWS, PAIRED3D_STEPS, STATS_BATCHES, STATS_TOL = [1, 2], 100, 200, 1e-5
 
 # Phase 23: the score_sde baselines on their texture twins (configs/score_sde.py):
@@ -761,6 +811,52 @@ SCORE_SDE_FIR_PER_FORWARD = {"fir_upsample2": 6, "fir_downsample2": 6}
 SCORE_SDE_EVALS, SCORE_SDE_BATCH, SCORE_SDE_SHORT, SCORE_SDE_CLI_STEPS = 20, 8, 3, 2
 SCORE_SDE_CLI_RECIPE = "configs/ve/ncsnv2/celeba.py"
 
+# Phase 24: the celebA multi-scale recipes (`configs/srflow.py`: Haar space
+# and bicubic) and the Haar-flow trainer (`configs/extra.py`) at full width,
+# on the texture160 images written as celebA.  Kernels 1-3 calls per forward
+# of each recipe's _block variant at B=8 (meta device; the CPU tests count
+# them again), and the sites among them no earlier phase checked: the
+# Haar-flow U-Net's 8x8 to 2x2 levels at up to 384 channels, celebA's
+# 10x10 / 5x5 blocks at 256 and 384.
+MULTISCALE_RECIPES = [
+    ("celebA haar 40", lambda: celeba_haar_config(40)),
+    ("celebA haar 80", lambda: celeba_haar_config(80)),
+    ("celebA haar 160", lambda: celeba_haar_config(160)),
+    ("celebA bicubic 40", lambda: celeba_bicubic_config(40)),
+    ("celebA bicubic 80", lambda: celeba_bicubic_config(80)),
+    ("celebA bicubic 160", lambda: celeba_bicubic_config(160)),
+    ("haarflow 128", lambda: haarflow_config(128)),
+]
+_SCALE_40 = {"gn_silu_conv3x3": 5, "resblock_fused": 6, "resblock_fused_split": 6}
+MULTISCALE_PER_FORWARD = {
+    "celebA haar 40": _SCALE_40, "celebA haar 80": _SCALE_40,
+    "celebA haar 160": {"gn_silu_conv3x3": 7, "resblock_fused": 5, "resblock_fused_split": 4},
+    "celebA bicubic 40": _SCALE_40, "celebA bicubic 80": _SCALE_40, "celebA bicubic 160": _SCALE_40,
+    "haarflow 128": {"gn_silu_conv3x3": 5, "resblock_fused": 8, "resblock_fused_split": 9},
+}
+MULTISCALE_NEW_SITES = [
+    ("gn_silu_conv3x3", 16, 256),
+    ("resblock_fused", 2, 384, 0, 384), ("resblock_fused", 4, 256, 0, 384), ("resblock_fused", 4, 384, 0, 384),
+    ("resblock_fused", 5, 256, 0, 384), ("resblock_fused", 5, 384, 0, 384), ("resblock_fused", 10, 128, 0, 256),
+    ("resblock_fused", 10, 256, 0, 256),
+    ("resblock_fused_split", 2, 384, 384, 384), ("resblock_fused_split", 4, 384, 256, 384),
+    ("resblock_fused_split", 4, 384, 384, 384), ("resblock_fused_split", 5, 384, 256, 384),
+    ("resblock_fused_split", 5, 384, 384, 384), ("resblock_fused_split", 8, 384, 256, 256),
+    ("resblock_fused_split", 10, 256, 128, 256), ("resblock_fused_split", 10, 256, 256, 256),
+    ("resblock_fused_split", 10, 384, 256, 256),
+]
+MULTISCALE_CLI_RECIPE = "configs/ve/srflow/celebA/haar/config_40.py"
+MULTISCALE_MASTERS = [  # (label, recipe file, the coordinate space its chain needs)
+    ("celebA haar", "configs/ve/srflow/celebA/haar/master_config.py", "haar"),
+    ("celebA bicubic", "configs/ve/srflow/celebA/bicubic/reduce_max_only/master_config.py", "bicubic"),
+]
+MULTISCALE_TRAIN_STEPS, HAARFLOW_IMAGES, CELEBA_JPEG_QUALITY = 2, 256, 95
+# Phase 25: the perceptual metrics on seeded synthetic weights written as the
+# reference files (pytorch-fid's InceptionV3, torchvision's AlexNet
+# features, lpips' heads): the card (float32, TF32 off) against the same
+# modules on the CPU in float64 on the first 8 texture160 test images.
+PERCEPTUAL_IMAGES, PERCEPTUAL_TOL, FID_TOL = 8, 1e-4, 1e-3
+
 WRAPPERS = {
     "gn_silu_conv3x3": fused_tail.gn_silu_conv3x3,
     "resblock_fused": fused_block.resblock_fused,
@@ -773,8 +869,84 @@ WRAPPERS = {
 }
 
 
+START = time.perf_counter()
+CHILD_TIMEOUT_S = 900  # a child's phases take ~250 s; one that hangs fails the run instead of stalling it
+
+
 def phase(name, t0, msg=""):
     print(f"[{name}] {time.perf_counter() - t0:.3f} s {msg}".rstrip(), flush=True)
+    # the run's progress on stderr, so a run cut at its time limit shows where it was
+    print(f"chip_smoke pid {os.getpid()} at {time.perf_counter() - START:.1f} s: [{name}] {msg[:100]}",
+          file=sys.stderr, flush=True)
+
+
+class Child:
+    """Phases run in order in a child process of this script (``chip_smoke.py
+    --child <dir>``) while this process goes on with others.
+
+    The quality-gated phases are host-bound (the device busy ~0.13 of their
+    time), so they share the card with this process at little cost to
+    each.  ``calls`` is [(function name, args), ...]; the child loads the
+    kernels this process built, runs the calls with their own launch
+    counters and gates, and pickles their results.  `join` prints the
+    child's output and returns the results, or raises if the child failed;
+    `stop` kills it if it still runs."""
+
+    def __init__(self, label, calls):
+        self.label = label
+        self.directory = tempfile.mkdtemp(prefix="chip_smoke_child_")
+        with open(os.path.join(self.directory, "calls.pkl"), "wb") as f:
+            pickle.dump(calls, f)
+        self.log = open(os.path.join(self.directory, "stdout.log"), "w")
+        self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--child", self.directory],
+                                     stdout=self.log, cwd=REPO)
+        print(f"[child] {self.label}: pid {self.proc.pid}, {[name for name, _ in calls]}", flush=True)
+
+    def join(self):
+        try:
+            rc = self.proc.wait(timeout=CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        self.stop()
+        with open(os.path.join(self.directory, "stdout.log")) as f:
+            sys.stdout.write(f.read())
+        if rc != 0:
+            raise RuntimeError(f"{self.label}: the child process exited with {rc} (None: killed after"
+                               f" {CHILD_TIMEOUT_S} s)")
+        with open(os.path.join(self.directory, "results.pkl"), "rb") as f:
+            results = pickle.load(f)
+        shutil.rmtree(self.directory, ignore_errors=True)
+        return results
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+
+
+def child_main(directory):
+    """The child's side of `Child`: exits by itself if its parent dies."""
+    parent = os.getppid()
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(2)
+        os._exit(3)
+
+    threading.Thread(target=watch, daemon=True).start()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for load in (fused_tail.load_library, fused_block.load_library, fir.load_library, conv3x3.load_library,
+                 fused_act.load_library):
+        if load().build_seconds:
+            raise RuntimeError("a child built a kernel: the parent builds them all before it starts children")
+    with open(os.path.join(directory, "calls.pkl"), "rb") as f:
+        calls = pickle.load(f)
+    results = [globals()[name](*args) for name, args in calls]
+    with open(os.path.join(directory, "results.pkl"), "wb") as f:
+        pickle.dump(results, f)
+    return 0
 
 
 def time_ms(fn, iters=100, warmup=10):
@@ -2310,14 +2482,15 @@ def random_chain_weights(master, directory, on=None):
             config.model.checkpoint_path = paths[int(config.data.image_size)]
 
 
-def run_chain(label, master, steps, per_forward, cli_config=None):
+def run_chain(label, master, steps, per_forward, cli_config=None, data_path=os.path.join(REPO, "datasets")):
     """One chain over test batch 0, with every kernel counter at 0 just
     before and read just after: ``steps`` per scale through
-    `run_multi_scale_test`, or (``cli_config``, a recipe name) through
-    ``main.py --mode multi_scale_test`` in-process, whose chain gets the
-    same records.  Checks the launches (``per_forward[size]`` x ``steps``
-    summed over the scales, corrector none: one evaluation a step) and the
-    final images' shape and values.  Returns (result, final images)."""
+    `run_multi_scale_test`, or (``cli_config``, a recipe name or file)
+    through ``main.py --mode multi_scale_test --data_path <data_path>``
+    in-process, whose chain gets the same records and ``steps``.  Checks
+    the launches (``per_forward[size]`` x ``steps`` summed over the scales,
+    corrector none: one evaluation a step) and the final images' shape and
+    values.  Returns (result, final images)."""
     records, out = [], {}
     with tempfile.TemporaryDirectory() as log_dir:
         torch.cuda.synchronize()
@@ -2332,12 +2505,12 @@ def run_chain(label, master, steps, per_forward, cli_config=None):
             real = multiscale.run_multi_scale_test
 
             def recorded(*args, **kwargs):
-                out["final"] = real(*args, scale_records=records, **kwargs)[0]
+                out["final"] = real(*args, scale_records=records, **{**kwargs, "p_steps": steps})[0]
 
             multiscale.run_multi_scale_test = recorded
             try:
                 cli.main(["--mode", "multi_scale_test", "--config", cli_config, "--log_path", log_dir,
-                          "--data_path", os.path.join(REPO, "datasets")])
+                          "--data_path", data_path])
             finally:
                 multiscale.run_multi_scale_test = real
         torch.cuda.synchronize()
@@ -3141,35 +3314,37 @@ def earlier_sites():
     return done
 
 
-def check_inverse_sites(new):
-    """Kernels 1-3 against plain at each site in ``new`` (B=8, 32 groups),
-    float32 (1e-4) and bfloat16 (2e-2), with and without temb; each timed
-    once in float32, the twins' type, beside its plain version, the library
-    yardstick and the bound.  Returns per-site rows."""
+def check_inverse_sites(new, site="inverse problems"):
+    """Kernels 1-3 against plain at each site in ``new`` (B=8, the DDPM's
+    groups: 32 at every such width), float32 (1e-4) and bfloat16 (2e-2),
+    with and without temb; each timed once in float32, the twins' type,
+    beside its plain version, the library yardstick and the bound.  Returns
+    per-site rows labelled ``site``."""
     rows = []
-    for site in sorted(new):
-        name, h, *chans = site
+    for key in sorted(new):
+        name, h, *chans = key
         if name == "gn_silu_conv3x3":
             (c,) = chans
+            groups = legacy_num_groups(c)
             for dtype in (torch.float32, torch.bfloat16):
                 for with_temb in (False, True):
                     x, w, gamma, beta, bias, temb = tail_inputs(h, c, dtype, seed=h * c + 7)
                     temb = temb if with_temb else None
                     err = check_close(
-                        f"inverse tail {BATCH}x{h}x{h}x{c} {dname(dtype)} temb={with_temb}",
-                        fused_tail.gn_silu_conv3x3(x, w, gamma, beta, GROUPS, bias=bias, temb=temb),
-                        fused_tail.gn_silu_conv3x3_plain(x, w, gamma, beta, GROUPS, bias=bias, temb=temb), dtype,
+                        f"{site} tail {BATCH}x{h}x{h}x{c} {dname(dtype)} temb={with_temb}",
+                        fused_tail.gn_silu_conv3x3(x, w, gamma, beta, groups, bias=bias, temb=temb),
+                        fused_tail.gn_silu_conv3x3_plain(x, w, gamma, beta, groups, bias=bias, temb=temb), dtype,
                     )
                     if dtype != torch.float32 or with_temb:
                         continue
                     flops, nbytes = tail_work(h, c, dtype)
                     bound_ms, bound_by = bound(flops, nbytes, dtype)
                     row = dict(
-                        shape=f"{BATCH}x{h}x{h}x{c}", dtype=dname(dtype), site="inverse problems", max_abs_err=err,
+                        shape=f"{BATCH}x{h}x{h}x{c}", dtype=dname(dtype), site=site, max_abs_err=err,
                         gflop=flops / 1e9, bound_ms=bound_ms, bound_by=bound_by,
-                        ms=time_ms(lambda: fused_tail.gn_silu_conv3x3(x, w, gamma, beta, GROUPS, bias=bias)),
+                        ms=time_ms(lambda: fused_tail.gn_silu_conv3x3(x, w, gamma, beta, groups, bias=bias)),
                         plain_ms=time_ms(
-                            lambda: fused_tail.gn_silu_conv3x3_plain(x, w, gamma, beta, GROUPS, bias=bias)),
+                            lambda: fused_tail.gn_silu_conv3x3_plain(x, w, gamma, beta, groups, bias=bias)),
                         library_ms=time_ms(lambda: conv3x3_nhwc(x, w, bias)),
                     )
                     print(f"    time: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, cuDNN conv only"
@@ -3177,10 +3352,11 @@ def check_inverse_sites(new):
                     rows.append(row)
             continue
         ca, cb, cout = chans
-        label = f"inverse {name} {BATCH}x{h}x{h}x{ca}" + (f"+{cb}" if cb else "") + f"->{cout}"
+        label = f"{site} {name} {BATCH}x{h}x{h}x{ca}" + (f"+{cb}" if cb else "") + f"->{cout}"
         for dtype in (torch.float32, torch.bfloat16):
             for with_temb in (True, False):
                 x, skip, kw = block_inputs(h, ca, cb, cout, dtype, seed=h * (ca + cb) + 7, with_temb=with_temb)
+                kw.update(num_groups0=legacy_num_groups(ca + cb), num_groups1=legacy_num_groups(cout))
                 err = check_close(f"{label} {dname(dtype)} temb={with_temb}",
                                   block_call(x, skip, kw), block_call(x, skip, kw, plain=True), dtype)
                 if dtype != torch.float32 or not with_temb:
@@ -3197,7 +3373,7 @@ def check_inverse_sites(new):
 
                 row = dict(
                     kernel=name, shape=f"{BATCH}x{h}x{h}x{ca}" + (f"+{cb}" if cb else "") + f"->{cout}",
-                    dtype=dname(dtype), site="inverse problems", max_abs_err=err, gflop=flops / 1e9,
+                    dtype=dname(dtype), site=site, max_abs_err=err, gflop=flops / 1e9,
                     bound_ms=bound_ms, bound_by=bound_by,
                     ms=time_ms(lambda: block_call(x, skip, kw)),
                     plain_ms=time_ms(lambda: block_call(x, skip, kw, plain=True)),
@@ -3211,13 +3387,14 @@ def check_inverse_sites(new):
 
 def run_inverse_harness(per_forward, directory):
     """`run_test` on the inpainting _block twin (test batch 0 of 25, draws
-    1 and 2, 20 steps) from seeded random weights, then the pipeline
-    (``--mode evaluation_pipeline``'s function) on the tree it wrote: its
-    masks, re-rolled from the PNG numbers, must be the harness batch's."""
+    1 and 2, `INVERSE_HARNESS_STEPS`) from seeded random weights, then the
+    pipeline (``--mode evaluation_pipeline``'s function) on the tree it
+    wrote: its masks, re-rolled from the PNG numbers, must be the harness
+    batch's."""
     config = datasets_dir(texture160_inpainting_cmde_block_config())
     config.eval.base_log_dir = os.path.join(directory, "evaluation")
     config.eval.draws = list(INVERSE_HARNESS_DRAWS)
-    config.eval.p_steps = INVERSE_STEPS
+    config.eval.p_steps = INVERSE_HARNESS_STEPS
     model = init_model_random(config, seed=config.seed, device="cuda")
     config.model.checkpoint_path = save_ema(os.path.join(directory, "inpainting_ema.pt"), 0, model.state_dict())
     del model
@@ -3227,15 +3404,16 @@ def run_inverse_harness(per_forward, directory):
     results = run_test(config, device="cuda", draw_records=records)
     wall = time.perf_counter() - t
     launches = read_launches()
-    expected = expect_launches("inpainting harness", launches, per_forward, 2 * INVERSE_STEPS * len(config.eval.draws))
+    evaluations = 2 * INVERSE_HARNESS_STEPS * len(config.eval.draws)
+    expected = expect_launches("inpainting harness", launches, per_forward, evaluations)
     means = {m: v[0] for m, v in results[0.15].items()}
     ok = sorted(means) == ["consistency", "diversity", "psnr", "ssim"] and all(math.isfinite(v) for v in means.values())
-    result = dict(path="float32 --mode test harness, inpainting _block twin", steps=INVERSE_STEPS,
+    result = dict(path="float32 --mode test harness, inpainting _block twin", steps=INVERSE_HARNESS_STEPS,
                   batch=config.eval.batch_size, wall_s=wall, seconds_per_draw=[r["seconds"] for r in records],
-                  ms_per_score_eval=[r["seconds"] / (2 * INVERSE_STEPS) * 1e3 for r in records], means=means,
-                  launches=launches)
+                  ms_per_score_eval=[r["seconds"] / (2 * INVERSE_HARNESS_STEPS) * 1e3 for r in records],
+                  means=means, launches=launches)
     phase("main", t, f"{result['path']}: test batch 0 of {result['batch']}, draws {config.eval.draws},"
-                     f" {INVERSE_STEPS} steps: " + ", ".join(f"{m} {v:.5f}" for m, v in sorted(means.items()))
+                     f" {INVERSE_HARNESS_STEPS} steps: " + ", ".join(f"{m} {v:.5f}" for m, v in sorted(means.items()))
           + f"; {wall:.3f} s wall, ms per score evaluation {['%.3f' % v for v in result['ms_per_score_eval']]};"
           f" launches {launches} (expected {expected}) {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -3436,45 +3614,61 @@ def fit_largest_batch(label, config, steps):
         batch //= 2
 
 
-def run_score_sde_cli(root):
-    """``main.py --mode train --config configs/ve/ncsnv2/celeba.py
-    --data_path <root>`` in-process: the recipe from the path table
-    (`configs/score_sde.py`), its ``n_iters`` cut to 2 (and every step
-    logged) by wrapping that table entry for the call; ``<root>/CELEBA`` is
-    the twin's texture64 folder."""
-    key = score_sde.recipe_key(SCORE_SDE_CLI_RECIPE)
+@contextlib.contextmanager
+def table_entry(recipe, build):
+    """The path table's entry for the recipe file ``recipe`` replaced by
+    ``build`` (given the table's own entry) inside the block."""
+    key = score_sde.recipe_key(recipe)
     real = score_sde.RECIPES[key]
-
-    def cut():
-        config = real()
-        config.training.n_iters, config.training.log_freq = SCORE_SDE_CLI_STEPS, 1
-        return config
-
-    os.symlink(os.path.join(root, score_sde.TEXTURE64_FOLDER), os.path.join(root, real().data.dataset))
-    t = time.perf_counter()
-    score_sde.RECIPES[key] = cut
+    score_sde.RECIPES[key] = lambda: build(real)
     try:
-        with tempfile.TemporaryDirectory() as log_path:
-            zero_launches()
-            cli.main(["--mode", "train", "--config", SCORE_SDE_CLI_RECIPE, "--data_path", root, "--log_path", log_path])
-            launches = read_launches()
-            scalars = read_scalars(os.path.join(log_path, "scalars.jsonl"))
-            failures = callback_failures_logged(log_path)
-            saved = sorted(os.listdir(os.path.join(log_path, "checkpoints")))
+        yield real
     finally:
         score_sde.RECIPES[key] = real
+
+
+def cli_train(recipe, data_path, steps):
+    """``main.py --mode train --config <recipe> --data_path <data_path>``
+    in-process: the recipe from the path table, its ``n_iters`` cut to
+    ``steps`` (every step logged) by wrapping the table entry for the call.
+    Finite losses at every step, no callback failure, every counter 0 (the
+    train steps carry a gradient)."""
+
+    def cut(real):
+        config = real()
+        config.training.n_iters, config.training.log_freq = steps, 1
+        return config
+
+    t = time.perf_counter()
+    with table_entry(recipe, cut), tempfile.TemporaryDirectory() as log_path:
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        cli.main(["--mode", "train", "--config", recipe, "--data_path", data_path, "--log_path", log_path])
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        scalars = read_scalars(os.path.join(log_path, "scalars.jsonl"))
+        failures = callback_failures_logged(log_path)
+        saved = sorted(os.listdir(os.path.join(log_path, "checkpoints")))
     wall = time.perf_counter() - t
     losses = [(step, v) for tag, v, step in scalars if tag == "train_loss"]
     ms = [v for tag, v, _ in scalars if tag == "ms_per_step"]
-    ok = ([step for step, _ in losses] == list(range(1, SCORE_SDE_CLI_STEPS + 1))
+    ok = ([step for step, _ in losses] == list(range(1, steps + 1))
           and all(math.isfinite(v) for _, v in losses) and not failures and not any(launches.values()))
-    phase("main", t, f"CLI --mode train --config {SCORE_SDE_CLI_RECIPE} --data_path {root}: {wall:.3f} s,"
-                     f" train_loss {losses}, ms_per_step {ms}, checkpoints {saved}, callback failures {failures},"
-                     f" launches {launches} {'ok' if ok else 'FAIL'}")
+    phase("main", t, f"CLI --mode train --config {recipe} --data_path {data_path}: {wall:.3f} s,"
+                     f" train_loss {losses}, ms_per_step {ms}, peak {peak:.3f} GiB, checkpoints {saved},"
+                     f" callback failures {failures}, launches {launches} {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise RuntimeError("the score_sde recipe by path did not train through the CLI as expected")
-    return dict(path=f"CLI train {SCORE_SDE_CLI_RECIPE}", steps=SCORE_SDE_CLI_STEPS, wall_s=wall, train_loss=losses,
-                ms_per_step=ms, launches=launches)
+        raise RuntimeError(f"{recipe} did not train through the CLI as expected")
+    return dict(path=f"CLI train {recipe}", steps=steps, wall_s=wall, train_loss=losses, ms_per_step=ms,
+                peak_gib=peak, launches=launches)
+
+
+def run_score_sde_cli(root):
+    """`cli_train` of ``configs/ve/ncsnv2/celeba.py``; ``<root>/CELEBA`` is
+    the twin's texture64 folder."""
+    dataset = score_sde.RECIPES[score_sde.recipe_key(SCORE_SDE_CLI_RECIPE)]().data.dataset
+    os.symlink(os.path.join(root, score_sde.TEXTURE64_FOLDER), os.path.join(root, dataset))
+    return cli_train(SCORE_SDE_CLI_RECIPE, root, SCORE_SDE_CLI_STEPS)
 
 
 def run_score_sde():
@@ -3551,6 +3745,288 @@ def run_score_sde():
     finally:
         shutil.rmtree(directory, ignore_errors=True)
     return paths, agree, fir_rows
+
+
+# ---- the celebA multi-scale recipes and the Haar-flow trainer (phase 24) ------
+
+
+def write_celeba_folders(directory, source_dir, limit=None):
+    """The texture160 images as celebA under ``directory``: ``haar/celebA/``
+    the train images (the first ``limit``) as JPEGs, with the Haar trees the
+    recipes read beside it (``celebA_{160,80,40}`` by `create_dataset` of
+    `celeba_haar_config(40)`; ``celebaHQ_128`` of the first `HAARFLOW_IMAGES`
+    for `haarflow_config(128)`); ``bicubic/celebA/`` celebA's fixed split in
+    symbolic links, the 162,770 train names cycling over the train JPEGs and
+    the names after them the test images'.  Returns (Haar base, bicubic
+    base, {stage: seconds})."""
+    seconds = {}
+    t = time.perf_counter()
+    haar, bicubic = os.path.join(directory, "haar"), os.path.join(directory, "bicubic")
+    jpegs = {}
+    for split in ("train", "test"):
+        images = load_pkl_images(os.path.join(source_dir, "texture160", f"texture160-{split}.pklv4"),
+                                 limit or int(1e9))
+        folder = os.path.join(directory, f"jpeg_{split}")
+        os.makedirs(folder)
+        jpegs[split] = [os.path.join(folder, f"{i:06d}.jpg") for i in range(len(images))]
+        with ThreadPoolExecutor(8) as pool:  # libjpeg and the file writes release the GIL
+            list(pool.map(lambda i: Image.fromarray(images[i]).save(jpegs[split][i], quality=CELEBA_JPEG_QUALITY),
+                          range(len(images))))
+    os.makedirs(os.path.join(haar))
+    os.symlink(os.path.join(directory, "jpeg_train"), os.path.join(haar, "celebA"))
+    seconds["jpeg"] = time.perf_counter() - t
+    t = time.perf_counter()
+    config = celeba_haar_config(40)
+    config.data.base_dir = haar
+    create_dataset(config)
+    seconds["haar_160_80_40"] = time.perf_counter() - t
+    t = time.perf_counter()
+    flow = haarflow_config(128)
+    create_haar_dataset(os.path.join(haar, "celebA"), haar, flow.data.dataset, flow.data.image_size, max_depth=0,
+                        split=tuple(flow.data.split), seed=flow.seed, limit=HAARFLOW_IMAGES)
+    seconds["haar_128"] = time.perf_counter() - t
+    t = time.perf_counter()
+    folder = os.path.join(bicubic, "celebA")
+    os.makedirs(folder)
+    train, test = jpegs["train"], jpegs["test"]
+    links = [train[i % len(train)] for i in range(sr_multiscale.CELEBA_TRAIN)] + test
+    for i, target in enumerate(links):
+        os.symlink(target, os.path.join(folder, f"{i:06d}.jpg"))
+    seconds["bicubic_links"] = time.perf_counter() - t
+    return haar, bicubic, seconds
+
+
+def multiscale_recipe(label, haar, bicubic):
+    config = dict(MULTISCALE_RECIPES)[label]()
+    config.data.base_dir = bicubic if "bicubic" in label else haar
+    return config
+
+
+def datamodule_ms(config, batches=2):
+    """Host milliseconds of each of the first ``batches`` train batches of
+    ``config``'s datamodule, after the task's `prepare_batch`."""
+    dm = create_datamodule(config)
+    dm.setup()
+    task = create_task(config, None)
+    it, out = dm.train_iterator(), []
+    for _ in range(batches):
+        t = time.perf_counter()
+        task.prepare_batch(next(it))
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def multiscale_sites():
+    """Kernels 1-3 per forward of each recipe's _block variant at B=8 on the
+    meta device; raises where one differs from `MULTISCALE_PER_FORWARD` or
+    the sites no earlier phase checked from `MULTISCALE_NEW_SITES`."""
+    union = collections.Counter()
+    for label, build in MULTISCALE_RECIPES:
+        config = build()
+        config.model.fused_tail = config.model.fused_block = True
+        calls = forward_calls(config, BATCH, chain_inputs(config, BATCH))
+        if per_name(calls) != MULTISCALE_PER_FORWARD[label]:
+            raise RuntimeError(f"{label}: kernel calls per forward {per_name(calls)}, expected"
+                               f" {MULTISCALE_PER_FORWARD[label]}")
+        union.update(calls)
+    new = set(union) - earlier_sites()
+    if new != set(MULTISCALE_NEW_SITES):
+        raise RuntimeError(f"new sites {sorted(new)}, expected `MULTISCALE_NEW_SITES`")
+    return new
+
+
+def multiscale_masters(recipe, space, base, directory):
+    """The master file ``recipe`` by path (the path table), each scale on
+    ``base`` at eval batch `BATCH`, chained in ``space``, and its _block
+    twin (fused_tail, fused_block), both on one set of random weights."""
+    off = cli.load_config(recipe)
+    off.coordinate_space = space
+    for config in multiscale.scale_configs(off):
+        config.data.base_dir, config.eval.batch_size = base, BATCH
+    on = copy.deepcopy(off)
+    for config in multiscale.scale_configs(on):
+        config.model.fused_tail = config.model.fused_block = True
+    random_chain_weights(off, directory, on)
+    return on, off
+
+
+def run_multiscale_chains(haar, bicubic):
+    """Each celebA master chain: kernels on against off over `PYRAMID_SHORT`
+    steps a scale (`chain_agreement`), then ``main.py --mode
+    multi_scale_test --config <master file>`` in-process over `CHAIN_STEPS`
+    a scale, with the table entry wrapped to the chain with the kernels on,
+    the random weights and eval batch `BATCH`; every launch at its count."""
+    paths, agree = [], []
+    with tempfile.TemporaryDirectory() as weights:
+        for label, recipe, space in MULTISCALE_MASTERS:
+            base = bicubic if space == "bicubic" else haar
+            directory = os.path.join(weights, space)
+            os.makedirs(directory)
+            on, off = multiscale_masters(recipe, space, base, directory)
+            per_forward = {s: per_name(c) for s, c in chain_calls(on).items()}
+            agree.append(chain_agreement(f"float32 {label} master", on, off, per_forward))
+            with table_entry(recipe, lambda real: copy.deepcopy(on)):
+                result, _ = run_chain(f"float32 {label} master chain (--mode multi_scale_test by path),"
+                                      " fused_block+fused_tail", None, CHAIN_STEPS, per_forward, cli_config=recipe,
+                                      data_path=base)
+            result["calls_per_forward"] = per_forward
+            paths.append(result)
+    return paths, agree
+
+
+def run_multiscale_recipes():
+    """Phase 24: the celebA multi-scale recipes and the Haar-flow trainer."""
+    t = time.perf_counter()
+    # in memory where the machine has /dev/shm: 162,822 links on its disk took 24.5 s
+    directory = tempfile.mkdtemp(prefix="celeba_multiscale_", dir="/dev/shm" if os.path.isdir("/dev/shm") else None)
+    try:
+        haar, bicubic, seconds = write_celeba_folders(directory, os.path.join(REPO, "datasets"))
+        host = {label: datamodule_ms(multiscale_recipe(label, haar, bicubic))
+                for label in ("celebA haar 40", "haarflow 128")}  # the bicubic one: its trainer's data_ms
+        phase("setup", t, f"celebA folders under {directory}: build seconds {seconds}; host ms of the first train"
+                          f" batches (after prepare_batch) {host}")
+        data = dict(path="celebA data build and datamodules", build_s=seconds, datamodule_ms=host,
+                    launches={name: 0 for name in WRAPPERS})
+
+        t = time.perf_counter()
+        new = multiscale_sites()
+        rows = check_inverse_sites(new, site="celebA multi-scale / Haar flow")
+        phase("kernel", t, f"celebA multi-scale and Haar-flow recipes: kernels 1-3 against plain at the {len(new)}"
+                           f" sites no earlier phase checked: {sorted(new)}")
+
+        paths = [data, cli_train(MULTISCALE_CLI_RECIPE, haar, MULTISCALE_TRAIN_STEPS)]
+        for label in ("celebA bicubic 160", "haarflow 128"):
+            config = multiscale_recipe(label, haar, bicubic)
+            result, batch = fit_largest_batch(label, config, MULTISCALE_TRAIN_STEPS)
+            result["recipe_batch"], result["batch"] = config.training.batch_size, batch
+            paths.append(result)
+        chains, agree = run_multiscale_chains(haar, bicubic)
+        paths += chains
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    return paths, agree, rows
+
+
+# ---- the perceptual metrics (phase 25) -----------------------------------------
+
+
+def synthetic_perceptual_weights(directory):
+    """Seeded weights written as the reference files are: pytorch-fid's
+    Inception state dict (BatchNorm statistics random too), torchvision
+    AlexNet ``features.*`` and lpips' ``lin{i}.model.1.weight``.  Returns
+    {env var: path}."""
+    g = torch.Generator().manual_seed(1)
+    net, lp = fid_inception.InceptionV3FID(), lpips_metric.LPIPS()
+    with torch.no_grad():
+        for m in itertools.chain(net.modules(), lp.modules()):
+            if isinstance(m, torch.nn.Conv2d):
+                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+                if m.out_channels == 1:  # an lpips head: non-negative
+                    m.weight.uniform_(0.0, 0.1, generator=g)
+                else:
+                    m.weight.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=g)
+                if m.bias is not None:
+                    m.bias.uniform_(-0.05, 0.05, generator=g)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.uniform_(-0.1, 0.1, generator=g)
+                m.running_mean.uniform_(-0.2, 0.2, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    paths = {k: os.path.join(directory, name) for k, name in (
+        ("CSDT_INCEPTION_WEIGHTS", "pt_inception.pth"), ("CSDT_LPIPS_ALEXNET", "alexnet.pth"),
+        ("CSDT_LPIPS_LIN", "alex_lin.pth"))}
+    torch.save(net.state_dict(), paths["CSDT_INCEPTION_WEIGHTS"])
+    sd = lp.state_dict()
+    torch.save({k: v for k, v in sd.items() if k.startswith("features.")}, paths["CSDT_LPIPS_ALEXNET"])
+    torch.save({k: v for k, v in sd.items() if k.startswith("lin")}, paths["CSDT_LPIPS_LIN"])
+    return paths
+
+
+def rel(got, want):
+    return float(np.abs(np.asarray(got) - np.asarray(want)).max() / np.abs(np.asarray(want)).max())
+
+
+def run_perceptual():
+    """Phase 25: Inception taps, LPIPS, FID and joint FID on the card
+    against the CPU in float64, timed; then the evaluation pipeline with the
+    weights' env vars set on a tree of the same images."""
+    t = time.perf_counter()
+    directory = tempfile.mkdtemp(prefix="perceptual_")
+    try:
+        files = synthetic_perceptual_weights(directory)
+        gt = load_pkl_images(os.path.join(REPO, "datasets", "texture160", "texture160-test.pklv4"))[:PERCEPTUAL_IMAGES]
+        x = np.stack(gt).astype(np.float32) / 255.0
+        g = np.random.default_rng(0)
+        s = np.clip(x + g.normal(0.0, 0.1, x.shape).astype(np.float32), 0.0, 1.0)
+        y = np.stack(bicubic_lq_images(gt, 4)).astype(np.float32) / 255.0
+        zero_launches()
+        card = fid_inception.load_fid_inception(files["CSDT_INCEPTION_WEIGHTS"], (0, 1, 2, 3), device="cuda")
+        host = fid_inception.load_fid_inception(files["CSDT_INCEPTION_WEIGHTS"], (0, 1, 2, 3), device="cpu",
+                                                dtype=torch.float64)
+        lp_card = lpips_metric.load_lpips(files["CSDT_LPIPS_ALEXNET"], files["CSDT_LPIPS_LIN"], device="cuda")
+        lp_host = lpips_metric.load_lpips(files["CSDT_LPIPS_ALEXNET"], files["CSDT_LPIPS_LIN"], device="cpu",
+                                          dtype=torch.float64)
+        xc = torch.from_numpy(x).cuda()
+        with torch.no_grad(), full_float32():
+            taps = [a.double().cpu().numpy() for a in card(xc)]
+            want = [a.numpy() for a in host(torch.from_numpy(x).double())]
+            inception_ms = time_ms(lambda: card(xc), iters=20, warmup=3)
+            sc = torch.from_numpy(s).cuda()
+            lpips_ms = time_ms(lambda: lp_card(xc, sc), iters=20, warmup=3)
+        tap_err = [rel(a, b) for a, b in zip(taps, want)]
+        lp_err = rel(lpips_metric.distances(lp_card, x, s), lpips_metric.distances(lp_host, x, s))
+        acts = {name: (fid_inception.activations(card, v), fid_inception.activations(host, v))
+                for name, v in (("x", x), ("y", y), ("s", s))}
+        fid = [fid_from_activations(acts["x"][i], acts["s"][i]) for i in (0, 1)]
+        jfid = [joint_fid_from_activations(acts["y"][i], acts["x"][i], acts["s"][i]) for i in (0, 1)]
+        fid_err, jfid_err = abs(fid[0] - fid[1]) / abs(fid[1]), abs(jfid[0] - jfid[1]) / abs(jfid[1])
+        ok = max(tap_err) <= PERCEPTUAL_TOL and lp_err <= PERCEPTUAL_TOL and max(fid_err, jfid_err) <= FID_TOL
+        phase("agreement", t, f"perceptual metrics on synthetic reference-named weights, {PERCEPTUAL_IMAGES} texture160"
+                              f" test images: Inception taps 0-3 card (float32, TF32 off) against CPU float64 rel err"
+                              f" {['%.3e' % e for e in tap_err]}, LPIPS {lp_err:.3e} (tol {PERCEPTUAL_TOL:.0e});"
+                              f" FID {fid[0]:.6f} vs {fid[1]:.6f} ({fid_err:.3e}), joint FID {jfid[0]:.6f} vs"
+                              f" {jfid[1]:.6f} ({jfid_err:.3e}; tol {FID_TOL:.0e}); Inception forward"
+                              f" {inception_ms:.4f} ms, LPIPS {lpips_ms:.4f} ms (B={PERCEPTUAL_IMAGES})"
+                              f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("the perceptual metrics on the card disagree with the CPU's float64")
+
+        t = time.perf_counter()
+        tree = os.path.join(directory, "tree")
+        for name, images in (("x_gt", x), ("y_gt", y), ("samples/snr_0.150/draw_1", s),
+                             ("samples/snr_0.150/draw_2", np.clip(s[::-1] * 0.5 + x * 0.5, 0, 1))):
+            os.makedirs(os.path.join(tree, "images", name))
+            for i, img in enumerate(images):
+                save_png(img, os.path.join(tree, "images", name, f"{i + 1}.png"))
+        saved = {k: os.environ.get(k) for k in files}
+        os.environ.update(files)
+        try:
+            result = run_evaluation_pipeline("super-resolution", tree, 0.15, scale=4, device="cuda")
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        launches = read_launches()
+        wall = time.perf_counter() - t
+        ok = (result["skipped"] == [] and all("lpips" in e for e in result["per_draw"].values())
+              and all(math.isfinite(result[k]["mean"]) for k in ("fid", "joint_fid"))
+              and sorted(result["best_25_lpips_ids"]) == list(range(1, PERCEPTUAL_IMAGES + 1))
+              and not any(launches.values()))
+        phase("main", t, f"evaluation pipeline with CSDT_INCEPTION_WEIGHTS / CSDT_LPIPS_* set: {wall:.3f} s;"
+                         f" per_draw {result['per_draw']}, fid {result['fid']}, joint_fid {result['joint_fid']},"
+                         f" best_25_lpips_ids {result['best_25_lpips_ids']}, skipped {result['skipped']}"
+                         f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("the pipeline did not report lpips, fid and joint_fid")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    return dict(path="perceptual metrics (synthetic weights) and the pipeline", tap_rel_err=tap_err,
+                lpips_rel_err=lp_err, fid=fid, joint_fid=jfid, fid_rel_err=fid_err, joint_fid_rel_err=jfid_err,
+                inception_ms=inception_ms, lpips_ms=lpips_ms, pipeline_s=wall,
+                pipeline={k: result[k] for k in ("per_draw", "fid", "joint_fid", "best_25_lpips_ids")},
+                launches=launches)
 
 
 def main() -> int:
@@ -3707,37 +4183,52 @@ def main() -> int:
         "float32 trainer, policy off", off, TRAIN_OFF_STEPS, {name: 0 for name in WRAPPERS}, evals=0, restore=False,
     )
 
-    # ---- the --mode test harness on the trained texture64 checkpoint -------
+    # ---- the trained texture64 checkpoint's score, kernels on vs off --------
     agree_texture64 = texture64_agreement(harness_config(""))
-    main_harness = run_harness(sum(harness_tails.values()))
 
-    # ---- the paper's other estimators, the unconditional and VP samplers ----
+    # ---- the paper's other estimators ---------------------------------------
     estimator_paths, agree_estimators, estimator_conv_rows, checked_conv = [], [], [], set(shapes)
     for approach, recipe in ESTIMATORS:
         sample, trained, agree_one, conv_rows_one = run_estimator(approach, recipe, checked_conv)
         estimator_paths += [sample, trained]
         agree_estimators += agree_one
         estimator_conv_rows += conv_rows_one
-    main_uncond, train_uncond, agree_uncond = run_unconditional()
-    main_vp = [run_vp(name) for name in ("vpsde", "subvpsde")]
 
-    # ---- the multi-scale chains: the trained pyramid, the sequential chains, direct 8x
-    main_pyramid, agree_pyramid = run_pyramid(chain["pyramid"])
-    sequential_paths, agree_sequential = run_sequential(chain)
-    main_direct, agree_direct = run_direct_8x()
+    # ---- the quality-gated, host-bound phases (the --mode test harness; the toy;
+    # the paired callback and the trained pyramid) in three child processes, beside
+    # this one's phases up to the inverse problems, none of which times a kernel
+    tails = sum(harness_tails.values())
+    children = [
+        Child("the --mode test harness", [("run_harness", (tails,))]),
+        Child("the toy", [("run_toy", ())]),
+        Child("the paired callback and the trained pyramid",
+              [("run_paired_callback", (tails,)), ("run_pyramid", (chain["pyramid"],))]),
+    ]
+    try:
+        # ---- the unconditional and VP samplers ------------------------------
+        main_uncond, train_uncond, agree_uncond = run_unconditional()
+        main_vp = [run_vp(name) for name in ("vpsde", "subvpsde")]
+
+        # ---- the multi-scale chains: the sequential chains, direct 8x -------
+        sequential_paths, agree_sequential = run_sequential(chain)
+        main_direct, agree_direct = run_direct_8x()
+
+        # ---- training as the CLI runs it: the NCSN++ trainer ----------------
+        main_ncsnpp_train, main_kxsr_viz = run_ncsnpp_trainer(PER_FORWARD_NCSNPP_PATH)
+
+        # ---- the other samplers: the ODE, bits/dim, inpainting and colorization
+        main_ode = run_ode()
+        main_bpd = run_bpd()
+        projected_paths, agree_haar = run_projected()
+
+        t = time.perf_counter()
+        (main_harness,), (main_toy,), (main_paired, (main_pyramid, agree_pyramid)) = [c.join() for c in children]
+        phase("child", t, "waited for the children; their lines are above")
+    finally:
+        for c in children:
+            c.stop()
     new_paths = estimator_paths + [main_uncond, train_uncond] + main_vp + [main_pyramid] + sequential_paths
-    new_paths.append(main_direct)
-
-    # ---- training as the CLI runs it: the toy, the paired callback, the NCSN++ trainer
-    main_toy = run_toy()
-    main_paired = run_paired_callback(sum(harness_tails.values()))
-    main_ncsnpp_train, main_kxsr_viz = run_ncsnpp_trainer(PER_FORWARD_NCSNPP_PATH)
-    new_paths += [main_toy, main_paired, main_ncsnpp_train, main_kxsr_viz]
-
-    # ---- the other samplers: the ODE, bits/dim, inpainting and colorization
-    main_ode = run_ode()
-    main_bpd = run_bpd()
-    projected_paths, agree_haar = run_projected()
+    new_paths += [main_direct, main_toy, main_paired, main_ncsnpp_train, main_kxsr_viz]
     new_paths += [main_ode, main_bpd] + projected_paths
 
     # ---- the paper's other inverse problems on their texture twins
@@ -3747,6 +4238,10 @@ def main() -> int:
     # ---- the score_sde baselines on their texture twins
     score_sde_paths, agree_score_sde, score_sde_fir_rows = run_score_sde()
     new_paths += score_sde_paths
+
+    # ---- the celebA multi-scale recipes and the Haar-flow trainer; the perceptual metrics
+    multiscale_paths, agree_multiscale, multiscale_rows = run_multiscale_recipes()
+    new_paths += multiscale_paths + [run_perceptual()]
 
     bf16 = torch.bfloat16
     tail_line = per_forward_row(
@@ -3807,7 +4302,7 @@ def main() -> int:
     for k in kernels:
         k["per_shape"] = [
             r for r in tail_rows + harness_tail_rows + ncsnpp_tail_rows + block_rows + fir_rows + inverse_rows
-            + score_sde_fir_rows
+            + score_sde_fir_rows + multiscale_rows
             if r.get("kernel", "gn_silu_conv3x3") == k["name"]
         ]
     f32 = conv_sums(conv_rows, torch.float32)
@@ -3858,7 +4353,7 @@ def main() -> int:
         k["launches_other_paths"] = {p["path"]: p["launches"][name] for p in new_paths if p["launches"][name]}
     paths = [main_new, main_tail, main_ncsnpp, main_train, main_train_off, main_harness] + new_paths
     agree += [agree_train, agree_texture64] + agree_estimators + [agree_uncond, agree_pyramid] + agree_sequential
-    agree += [agree_direct, agree_haar] + agree_inverse + [agree_score_sde]
+    agree += [agree_direct, agree_haar] + agree_inverse + [agree_score_sde] + agree_multiscale
     print(json.dumps({"kernels": kernels, "paths": paths, "agreement": agree}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
@@ -3866,4 +4361,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(child_main(sys.argv[2]) if sys.argv[1:2] == ["--child"] else main())

@@ -9,7 +9,9 @@ from .celeba_sr import (
 )
 from .extra import (
     cifar10_vp_config,
+    haar_conditional_config,
     haar_multiscale_unconditional_config,
+    haarflow_config,
     mri_to_pet_config,
     texture160_unconditional_ncsnpp_config,
     texture64_haar_multiscale_unconditional_block_config,
@@ -47,7 +49,13 @@ from .score_sde import (
     texture32_ncsnpp_cifar10_smld_config,
     texture64_ncsnv2_celeba_config,
 )
-from .srflow import df2k_config, hq160_direct_8x_config, hq160_sequential_config
+from .srflow import (
+    celeba_bicubic_config,
+    celeba_haar_config,
+    df2k_config,
+    hq160_direct_8x_config,
+    hq160_sequential_config,
+)
 from .texture160_kxsr_ncsnpp import get_config as texture160_kxsr_ncsnpp_config
 from .texture160_kxsr_ncsnpp_block import get_config as texture160_kxsr_ncsnpp_block_config
 from .texture160_sr import (
@@ -67,13 +75,17 @@ from .toy import synthetic_config, toy_gaussian_bubbles_config, toy_vp_config
 __all__ = [
     "Config",
     "base_config",
+    "celeba_bicubic_config",
+    "celeba_haar_config",
     "celeba_sr_128_config",
     "celeba_sr_160_config",
     "celeba_sr_deep_config",
     "celeba_sr_interpolation_config",
     "cifar10_vp_config",
     "df2k_config",
+    "haar_conditional_config",
     "haar_multiscale_unconditional_config",
+    "haarflow_config",
     "hq160_direct_8x_config",
     "hq160_sequential_bicubic_master_config",
     "hq160_sequential_config",

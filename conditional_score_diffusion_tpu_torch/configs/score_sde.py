@@ -1,16 +1,14 @@
-"""The score_sde recipe files by path: each file of the JAX package's
-`configs/ve/`, `configs/vp/` and `configs/subvp/` trees (but
-`configs/ve/inverse_problems/`, which `configs/inverse_problems.py`
-tables) that builds on `configs/song.py`, `configs/ncsn_legacy.py` or a
-recipe the port already has, copied into :data:`RECIPES` (key: the path
-from ``configs/``, without ``.py``), so ``--config
-configs/ve/ncsnv2/celeba.py`` names the same recipe in the port's CLI as in
-JAX's.
-
-Left out: the Haar-flow files (`configs/ve/haarflow/`,
-`configs/vp/haarflow/`), whose recipes need the ``haar_multiscale``
-datamodule and `haar_conditional_config` / `haarflow_config` (ROADMAP.md
-section 1, item 12b), and the SRFlow trees (`configs/ve/srflow/`).
+"""The score_sde, Haar-flow and SRFlow recipe files by path: each file of
+the JAX package's `configs/ve/`, `configs/vp/` and `configs/subvp/` trees
+(but `configs/ve/inverse_problems/`, which `configs/inverse_problems.py`
+tables), copied into :data:`RECIPES` (key: the path from ``configs/``,
+without ``.py``), so ``--config configs/ve/ncsnv2/celeba.py`` names the
+same recipe in the port's CLI as in JAX's.  They build on
+`configs/song.py`, `configs/ncsn_legacy.py`, `configs/extra.py` and
+`configs/srflow.py`.  A ``master_config`` file is a master `Config` of its
+scales' recipes (keys ``config_*``, as the JAX file's), with no
+``coordinate_space``, as in JAX: ``--mode multi_scale_test`` then chains
+it in the ``haar`` space (ROADMAP.md section 3, hazards).
 
 Then the texture twins of five of them: the recipe at its own widths, its
 data a PNG folder written from the committed texture64 / texture160 sets
@@ -26,10 +24,24 @@ from typing import Callable, Dict
 import numpy as np
 
 from .base import Config, base_config
-from .extra import cifar10_vp_config, mri_to_pet_config, unconditional_pkl_config
+from .extra import (
+    cifar10_vp_config,
+    haar_conditional_config,
+    haar_multiscale_unconditional_config,
+    haarflow_config,
+    mri_to_pet_config,
+    unconditional_pkl_config,
+)
 from .inverse_problems import path_key
 from .ncsn_legacy import jan_celeba64_config, ncsn_config, ncsnv2_config
 from .song import ddpm_block, ddpmpp_block, ffhq_1024_config, get_default_configs, ncsnpp_block, ncsnpp_lsun_block
+from .srflow import (
+    celeba_bicubic_config,
+    celeba_haar_config,
+    df2k_config,
+    hq160_direct_8x_config,
+    hq160_sequential_config,
+)
 from .toy import synthetic_config
 
 
@@ -306,6 +318,40 @@ def _recipes() -> Dict[str, Callable[[], Config]]:
         table[f"ve/jan/{arch}/celeba_64"] = lambda a=arch: jan_celeba64_config(a)
     for stem, size in (("celebA-HQ-128", 128), ("celebA-HQ-64", 64), ("celebA_HQ_128", 128), ("celebA_HQ_64", 64)):
         table[f"ve/unconditional/{stem}"] = lambda s=size: unconditional_pkl_config(s)
+    table.update(_haarflow_and_srflow())
+    return table
+
+
+def _master(build: Callable[[int], Config], sizes) -> Config:
+    """A ``master_config`` file: its scales' recipes under ``config_{size}``."""
+    return Config(**{f"config_{size}": build(size) for size in sizes})
+
+
+def _haarflow_and_srflow() -> Dict[str, Callable[[], Config]]:
+    """`configs/ve/haarflow/`, `configs/vp/haarflow/` and `configs/ve/srflow/`."""
+    table = {
+        "ve/haarflow/128": lambda: haarflow_config(128, "vesde"),
+        "ve/haarflow/haar_128": lambda: haar_conditional_config(128, 256),
+        "ve/haarflow/haar_multiscale_unconditional_64": lambda: haar_multiscale_unconditional_config(64),
+        "vp/haarflow/celebahq": lambda: haarflow_config(64, "vpsde"),
+        "ve/srflow/DF2K/direct/4x": lambda: df2k_config("direct"),
+        "ve/srflow/DF2K/sequential/40to80": lambda: df2k_config("40to80"),
+        "ve/srflow/DF2K/sequential/80to160": lambda: df2k_config("80to160"),
+        "ve/srflow/celebA/bicubic/reduce_both_min_and_max/config_80":
+            lambda: celeba_bicubic_config(80, reduce_both=True),
+        "ve/srflow/celebA/bicubic/reduce_max_only/master_config": lambda: _master(celeba_bicubic_config, (40, 80, 160)),
+        "ve/srflow/celebA/haar/master_config": lambda: _master(celeba_haar_config, (80, 160)),
+        "ve/srflow/celebAHQ160/direct/8x": hq160_direct_8x_config,
+    }
+    for size in (40, 80, 160):
+        table[f"ve/srflow/celebA/bicubic/reduce_max_only/config_{size}"] = lambda s=size: celeba_bicubic_config(s)
+        table[f"ve/srflow/celebA/haar/config_{size}"] = lambda s=size: celeba_haar_config(s)
+    for space in ("bicubic", "haar"):
+        stem = f"ve/srflow/celebAHQ160/sequential/{space}"
+        table[f"{stem}/master_config"] = lambda sp=space: _master(
+            lambda s: hq160_sequential_config(s, sp), (40, 80, 160))
+        for size in (40, 80, 160):
+            table[f"{stem}/config_{size}"] = lambda s=size, sp=space: hq160_sequential_config(s, sp)
     return table
 
 

@@ -4,8 +4,13 @@ the sequential 2x stages ``80to160`` and ``40to80``, ``ddpm_2xSR``, all
 under VS-CMDE); `hq160_sequential_config` (the celebA-HQ-160 sequential 2x
 chain in the ``bicubic`` space, ``ddpm_2xSR``, or the ``haar`` space,
 ``ddpm_paired`` on the detail bands); `hq160_direct_8x_config` (direct 8x,
-``ddpm_KxSR``).  The celebA legacy multi-scale recipes wait for ROADMAP.md
-section 1, item 12.
+``ddpm_KxSR``); and the celebA legacy multi-scale recipes,
+`celeba_haar_config` (Haar space, the ``haar_multiscale`` datamodule) and
+`celeba_bicubic_config` (``ddpm_SR``, the ``bicubic_multiscale``
+datamodule).  The legacy schedule knobs of `celeba_haar_config` at 80 and
+160 (``model.reduction``, ``reach_target_in_epochs``,
+``starting_transition_iterations``) are copied; no code reads them, in JAX
+neither.
 """
 
 from __future__ import annotations
@@ -123,6 +128,130 @@ def df2k_config(kind: str = "direct") -> Config:
     model.sigma_max_y_target = model.sigma_max_y / 2
     model.input_channels = data.num_channels
     model.output_channels = data.num_channels
+    return config
+
+
+def celeba_haar_config(image_size: int) -> Config:
+    """One scale (``image_size`` 160, 80 or 40) of the celebA multi-scale
+    chain in Haar space (JAX `configs/srflow.py:celeba_haar_config`), on
+    the ``haar_multiscale`` trees of a 160px celebA (2 Haar levels): 160 and
+    80 a ``ddpm`` over the 12 Haar channels at ``image_size // 2`` with the
+    legacy schedule knobs, 40 the VS-CMDE ``ddpm_paired`` (detail bands
+    given the approximation band, sigma_y,max annealed to half over 8000
+    steps)."""
+    batch, gpus = {160: (25, 2), 80: (64, 2), 40: (128, 2)}[image_size]
+    config = _srflow_base(batch, gpus)
+    training = config.training
+    training.lightning_module = "haar_conditional_decreasing_variance"
+    training.visualization_callback = "conditional_haar_multiscale"
+
+    data = config.data
+    data.dataset = "celebA"
+    data.datamodule = "haar_multiscale"
+    data.split = [0.925, 0.05, 0.025]
+    data.target_resolution = 160
+    data.image_size = image_size
+    data.level = math.log(data.target_resolution // data.image_size, 2)
+    data.effective_image_size = image_size // 2
+    data.max_haar_depth = 2
+    data.shape_x = [9, data.effective_image_size, data.effective_image_size]
+    data.shape_y = [3, data.effective_image_size, data.effective_image_size]
+    data.num_channels = 12
+
+    model = config.model
+    model.num_scales = 1000
+    model.beta_max = 20.0 + 4 * (data.level + 1) * math.log(2)
+    model.embedding_type = "fourier"
+    model.scale_by_sigma = True
+    model.nf = 128
+    model.num_res_blocks = {160: 3, 80: 2, 40: 2}[image_size]
+    model.ch_mult = {160: (1, 1, 2, 2), 80: (1, 1, 2, 2), 40: (1, 1, 2)}[image_size]
+    model.attn_resolutions = {160: (20, 10), 80: (20, 10, 5), 40: (20, 10, 5)}[image_size]
+    model.resamp_with_conv = True
+    model.conditional = True
+    model.conv_size = 3
+
+    if image_size == 40:
+        model.name = "ddpm_paired"
+        model.reach_target_steps = 8000
+        model.sigma_max_x = float(math.sqrt(math.prod(data.shape_x)) * 2 ** (data.level + 1))
+        model.sigma_max_y = float(math.sqrt(math.prod(data.shape_y)))
+        model.sigma_max_y_target = model.sigma_max_y / 2
+        model.sigma_min_x = 1e-2
+        model.sigma_min_y = 1e-2
+        model.sigma_min_y_target = 1e-2
+        model.input_channels = 12
+        model.output_channels = 12
+    else:
+        model.name = "ddpm"
+        model.sigma_max_x = 450.0
+        model.sigma_max_y = model.sigma_max_x
+        model.reduction = "inverse_exponentional"
+        model.reach_target_in_epochs = 64
+        model.starting_transition_iterations = 8000
+        model.sigma_min_x = 0.01
+        model.sigma_min_y = 0.01
+        model.input_channels = 12
+        model.output_channels = 12
+    return config
+
+
+def celeba_bicubic_config(image_size: int, *, reduce_both: bool = False) -> Config:
+    """One scale (``image_size`` 160, 80 or 40) of the celebA bicubic
+    multi-scale chain (JAX `configs/srflow.py:celeba_bicubic_config`):
+    ``ddpm_SR`` nf=128 (x space-to-depth beside the half-size y, 15
+    channels in), the ``bicubic_multiscale`` datamodule; only sigma_y,max
+    anneals (``deprecated_conditional_decreasing_variance``, to half over
+    8000 steps), or with ``reduce_both`` both ends (to 6 and 1e-3 over
+    2e5 steps)."""
+    batch, gpus = {160: (32, 4), 80: (64, 2), 40: (128, 2)}[image_size]
+    config = _srflow_base(batch, gpus)
+    training = config.training
+    training.lightning_module = (
+        "conditional_decreasing_variance" if reduce_both else "deprecated_conditional_decreasing_variance"
+    )
+    training.visualization_callback = "bicubic_SR"
+
+    data = config.data
+    data.dataset = "celebA"
+    data.datamodule = "bicubic_multiscale"
+    data.split = [0.925, 0.05, 0.025]
+    data.target_resolution = 160
+    data.image_size = image_size
+    data.level = math.log(data.target_resolution // data.image_size, 2)
+    data.effective_image_size = image_size // 2
+    data.max_haar_depth = 2
+    data.num_channels = 15  # squeezed 12 + lr 3
+    data.shape_x = [3, image_size, image_size]
+    data.shape_y = [3, image_size // 2, image_size // 2]
+
+    model = config.model
+    model.num_scales = 1000
+    model.sigma_max_x = image_size * float(math.sqrt(3))
+    model.sigma_max_y = model.sigma_max_x
+    if reduce_both:
+        model.reach_target_steps = 2e5
+        model.sigma_max_y_target = 6
+        model.sigma_min_y_target = 1e-3
+    else:
+        model.reach_target_steps = 8000
+        model.sigma_max_y_target = model.sigma_max_y / 2
+        model.sigma_min_y_target = 1e-2
+    model.sigma_min_x = 1e-2
+    model.sigma_min_y = 1e-2
+    model.beta_max = 20.0 + 4 * (data.level + 1) * math.log(2)
+    model.embedding_type = "fourier"
+    model.name = "ddpm_SR"
+    model.scale_by_sigma = True
+    model.nf = 128
+    model.ch_mult = {160: (1, 1, 2, 2, 3), 80: (1, 1, 2, 2), 40: (1, 1, 2)}[image_size]
+    model.num_res_blocks = 2
+    model.attn_resolutions = (20, 10, 5)
+    model.resamp_with_conv = True
+    model.conditional = True
+    model.conv_size = 3
+    model.input_channels = 15
+    model.output_channels = 12
     return config
 
 

@@ -1,8 +1,9 @@
 """Degradations on host numpy batches, copied from the JAX package's
 `data/degradations.py`: `bicubic_resize_np`, `sr_degrade`, `grayscale`
 (the colorization task's y and the colorizer's input), `random_square_mask`
-(the inpainting task's mask, which the offline pipeline re-rolls) and
-`inpainting_degrade`."""
+(the inpainting task's mask, which the offline pipeline re-rolls),
+`inpainting_degrade`, and the LRHR pairs' joint `random_flip`,
+`random_rotation` and `random_crop`."""
 
 from __future__ import annotations
 
@@ -74,3 +75,30 @@ def random_square_mask(
 def inpainting_degrade(batch: np.ndarray, mask: np.ndarray) -> np.ndarray:
     """``batch`` with the masked square (``mask`` 1) set to 0."""
     return batch * (1.0 - mask)
+
+
+def random_flip(*imgs, rng: np.random.Generator):
+    """The HWC images flipped left-right together where one draw of ``rng``
+    is below 0.5."""
+    if rng.random() < 0.5:
+        return tuple(np.ascontiguousarray(img[:, ::-1, :]) for img in imgs)
+    return imgs
+
+
+def random_rotation(*imgs, rng: np.random.Generator):
+    """The HWC images rotated together by k quarter turns, k drawn from
+    ``rng`` in [0, 4)."""
+    k = int(rng.integers(0, 4))
+    return tuple(np.ascontiguousarray(np.rot90(img, k, axes=(0, 1))) for img in imgs)
+
+
+def random_crop(hr: np.ndarray, lr: np.ndarray, size: int, scale: int, rng: np.random.Generator):
+    """One crop of an HWC (hr, lr) pair: ``size`` square on hr, ``size //
+    scale`` on lr at the matching place; the lr corner drawn row then
+    column, each only where lr is larger than its crop."""
+    size_lr = size // scale
+    h_lr = int(rng.integers(0, lr.shape[0] - size_lr + 1)) if lr.shape[0] > size_lr else 0
+    w_lr = int(rng.integers(0, lr.shape[1] - size_lr + 1)) if lr.shape[1] > size_lr else 0
+    lr_c = lr[h_lr : h_lr + size_lr, w_lr : w_lr + size_lr]
+    hr_c = hr[h_lr * scale : h_lr * scale + size, w_lr * scale : w_lr * scale + size]
+    return hr_c, lr_c

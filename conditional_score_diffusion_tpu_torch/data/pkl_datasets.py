@@ -27,10 +27,13 @@ The train split is shuffled every epoch and, with ``data.use_flip``, each
 image (and its LQ partner) flipped horizontally by a mask drawn from the
 same numpy generator, ``np.random.default_rng(seed)``, as in JAX (the
 inpainting squares after the flip mask, one item after another): the port
-and the JAX package give the same batches.  `LRHR_PKLDataset`'s random
-crops (``data.use_crop``, every split in JAX) and rotations
-(``data.use_rot``, the train split) are not ported: a recipe that asks for
-them is refused.
+and the JAX package give the same batches.  Where `LRHR_PKLDataset` crops
+(``data.use_crop``: every split, a ``data.image_size`` square of GT at a
+corner drawn on the LQ grid) or rotates (``data.use_rot``: the train
+split, k quarter turns), each pair is augmented in turn from that generator,
+crop, flip (one draw a pair, not one mask a batch) and rotation, as JAX's
+slow path does (`degradations.random_crop` / `random_flip` /
+`random_rotation`).
 """
 
 from __future__ import annotations
@@ -49,6 +52,9 @@ from .degradations import (
     grayscale,
     inpainting_degrade,
     nearest_upsample_np,
+    random_crop,
+    random_flip,
+    random_rotation,
     random_square_mask,
     sr_degrade,
 )
@@ -140,6 +146,29 @@ def make_lrhr_batch(
     """``{'x': HR, 'y': LQ}`` of stored pairs, each pair flipped together
     (LQ upsampled by nearest neighbour to the HR size when ``upscale_lr``)."""
     x, y = assemble_batch(hr, flips), assemble_batch(lr, flips)
+    if upscale_lr:
+        y = nearest_upsample_np(y, x.shape[1] // y.shape[1])
+    return {"x": x, "y": y}
+
+
+def make_augmented_lrhr_batch(
+    lr: List[np.ndarray], hr: List[np.ndarray], upscale_lr: bool, rng: np.random.Generator,
+    crop: int, scale: int, use_flip: bool, use_rot: bool,
+) -> Dict[str, np.ndarray]:
+    """``{'x': HR, 'y': LQ}`` of stored pairs, each pair cropped (``crop``, a
+    GT size, or 0), flipped and rotated in turn with draws of ``rng``."""
+    xs, ys = [], []
+    for h, l in zip(hr, lr):
+        if crop:
+            h, l = random_crop(h, l, crop, scale, rng)
+        if use_flip:
+            h, l = random_flip(h, l, rng=rng)
+        if use_rot:
+            h, l = random_rotation(h, l, rng=rng)
+        xs.append(h)
+        ys.append(l)
+    x = np.stack(xs).astype(np.float32) / 255.0
+    y = np.stack(ys).astype(np.float32) / 255.0
     if upscale_lr:
         y = nearest_upsample_np(y, x.shape[1] // y.shape[1])
     return {"x": x, "y": y}
@@ -260,12 +289,15 @@ class PKLDataModule:
             image_size = c.data.image_size
             return lambda idx, rng: make_unpaired_batch([hr[i] for i in idx], image_size, use_flip, rng)
         if self.lrhr:
-            # JAX crops in every split and rotates in the train split
-            if c.data.get("use_crop", False) or (phase == "train" and c.data.get("use_rot", False)):
-                raise NotImplementedError(
-                    "random crops and rotations of LRHR_PKLDataset are not ported (ROADMAP.md section 1, item 12b)"
-                )
             upscale_lr, lr = c.data.get("upscale_lr", False), images["lr"]
+            # JAX crops in every split and rotates in the train split
+            use_crop = c.data.get("use_crop", False)
+            use_rot = c.data.get("use_rot", False) and phase == "train"
+            if use_crop or use_rot:
+                crop, scale = (c.data.image_size, c.data.scale) if use_crop else (0, 1)
+                return lambda idx, rng: make_augmented_lrhr_batch(
+                    [lr[i] for i in idx], [hr[i] for i in idx], upscale_lr, rng, crop, scale, use_flip, use_rot,
+                )
 
             def make_batch(idx, rng):
                 flips = flips_of(idx, rng)

@@ -12,9 +12,10 @@ over the draws and the diversity of the stacked draws x 255 per batch; the
 lists, one value per batch, are pickled to
 ``test_metrics/{first}_{last}.pkl`` as JAX writes them, with the bits/dim
 of `eval/bpd.py` under ``"bpd"`` where ``eval.enable_bpd`` is set and the
-recipe names no ``training.conditioning_approach``.  LPIPS needs
-weights that are not in the repo and is skipped with the JAX package's note
-(ROADMAP.md section 1, item 10).  The batches are the recipe's datamodule's
+recipe names no ``training.conditioning_approach``.  LPIPS of each draw
+against the ground truth (`eval/lpips.py`) joins the metrics where
+``eval.evaluation_metrics`` names it and its weights load; where they do
+not, it is skipped with the JAX package's message.  The batches are the recipe's datamodule's
 test split; an inpainting batch's ``mask`` feeds its consistency.
 
 All draws come from one noise source, by default a `torch.Generator` seeded
@@ -44,7 +45,8 @@ from ..sde import build_sde
 from ..training.checkpoint import load_eval_weights
 from ..training.schedules import is_decreasing_variance, sigma_y_at_step
 from .bpd import evaluate_bpd
-from .metrics import LPIPS_NOTE, ConsistencyUnavailable, get_consistency_fn, mean_psnr, mean_ssim
+from .lpips import load_lpips
+from .metrics import ConsistencyUnavailable, get_consistency_fn, mean_psnr, mean_ssim
 from .metrics import diversity as diversity_metric
 
 
@@ -118,9 +120,13 @@ def run_test(
     metrics_list = list(evalc.evaluation_metrics)
     if "diversity" in metrics_list and len(draws) == 1:
         metrics_list.remove("diversity")
+    lpips = None
     if "lpips" in metrics_list:
-        print(f"[test] LPIPS unavailable ({LPIPS_NOTE}); skipping lpips metric.")
-        metrics_list.remove("lpips")
+        try:
+            lpips = load_lpips(device=device)
+        except FileNotFoundError as e:
+            print(f"[test] LPIPS unavailable ({e}); skipping lpips metric.")
+            metrics_list.remove("lpips")
 
     shape_x = tuple(config.data.shape_x)
     sample_shape = (evalc.batch_size,) + shape_x[1:] + (shape_x[0],)
@@ -185,6 +191,9 @@ def run_test(
                     for i in range(host.shape[0]):
                         save_png(host[i], os.path.join(ddir, f"{images_tested + i + 1}.png"))
 
+                if "lpips" in metrics_list:
+                    with torch.no_grad(), full_float32():
+                        per_draw["lpips"].append(float(lpips(x_gt, samples).mean()))
                 if "psnr" in metrics_list:
                     per_draw["psnr"].append(mean_psnr(samples, x_gt))
                 if "ssim" in metrics_list:

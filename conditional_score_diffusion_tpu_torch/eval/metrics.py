@@ -9,9 +9,12 @@ precision moves it (the JAX package measured 0.795 against 0.881 on the
 TPU, `eval/metrics.py:_filter2d_valid`).  Inputs may be tensors or numpy
 arrays; results are Python floats or float64 tensors.
 
-LPIPS and FID need pretrained weights that are not in the repo and are not
-ported (ROADMAP.md section 1, item 10); the harness and the pipeline skip
-them with the JAX package's notes, :data:`LPIPS_NOTE` and :data:`FID_NOTE`.
+LPIPS and FID (`eval/lpips.py`, `eval/inception.py`, `eval/fid.py`) need
+pretrained weights that are not in the repo: the harness and the pipeline
+compute them where ``CSDT_LPIPS_ALEXNET`` / ``CSDT_LPIPS_LIN`` and
+``CSDT_INCEPTION_WEIGHTS`` name local files, and skip them with the JAX
+package's notes otherwise (:data:`LPIPS_NOTE`, :data:`LPIPS_LIN_NOTE`,
+:data:`FID_NOTE`).
 The image-to-image consistency compares Canny edge maps from OpenCV; where
 ``cv2`` does not import, they skip it with :data:`CANNY_NOTE`.
 """
@@ -27,6 +30,7 @@ import torch.nn.functional as F
 from ..ops.resize import full_float32, imresize
 
 LPIPS_NOTE = "LPIPS needs AlexNet weights; set CSDT_LPIPS_ALEXNET to a local torchvision alexnet state dict"
+LPIPS_LIN_NOTE = "LPIPS needs linear-head weights; set CSDT_LPIPS_LIN to the lpips alex.pth"
 FID_NOTE = (
     "FID inception weights not found; set CSDT_INCEPTION_WEIGHTS to a local pt_inception-2015-12-05-6726825d.pth"
 )

@@ -14,7 +14,10 @@ spaces (``master.coordinate_space``):
 
 The chain starts from the lowest scale's test ``y``; the GT comes from the
 highest scale's test split (haar: ``haar_backward(cat(y, x))``; bicubic:
-``x``).  Each batch writes ``pyramid_batch{b}.png`` (every level
+``x``).  Each split is its recipe's datamodule's, its batches passed
+through the scale's task (`prepare_batch`: a ``haar_multiscale`` array
+becomes its detail and approximation bands; JAX hands the array on and
+fails).  Each batch writes ``pyramid_batch{b}.png`` (every level
 nearest-upsampled to the final size, each image min-max scaled, side by
 side, with the GT on the right) and the final images
 ``batch{b}_{i}.png`` under ``{log_path}/multi_scale`` (rounded to 8 bits,
@@ -43,7 +46,7 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from ..data.pkl_datasets import PKLDataModule
+from ..data import create_datamodule
 from ..ops.haar import haar_backward
 from ..ops.resize import full_float32
 from ..sampling import gaussian_noise
@@ -131,8 +134,13 @@ def run_multi_scale_test(
 
     # the chain starts from the lowest scale's test y; the GT is the highest
     # scale's test split
-    batches = PKLDataModule(scales[0][0]).test_iterator()
-    gt_batches = PKLDataModule(scales[-1][0]).test_iterator()
+    def test_batches(config, task):
+        dm = create_datamodule(config)
+        dm.setup()
+        return map(task.prepare_batch, dm.test_iterator())
+
+    batches = test_batches(*scales[0][:2])
+    gt_batches = test_batches(*scales[-1][:2])
 
     out_dir = os.path.join(log_path, "multi_scale")
     Path(out_dir).mkdir(parents=True, exist_ok=True)

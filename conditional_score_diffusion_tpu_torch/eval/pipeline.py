@@ -4,10 +4,14 @@
 Walks ``{base_path}/images/{samples/snr_%.3f/draw_*, x_gt, y_gt}``, aligns
 the PNGs by file number, computes PSNR, SSIM and consistency per draw and
 the diversity across draws (pixel std of the [0, 1] images), and pickles
-``evaluation_info.pkl`` with the JAX package's keys.  LPIPS and FID need
-weights that are not in the repo and are not ported (ROADMAP.md section 1,
-item 10): they go to ``skipped`` with the JAX package's notes; so does the
-image-to-image consistency where cv2 does not import (`metrics.CANNY_NOTE`).
+``evaluation_info.pkl`` with the JAX package's keys.  Where their weights
+load: each draw's LPIPS against the GT (``per_draw[draw]["lpips"]``, the
+mean; the 25 numbers of lowest LPIPS averaged over the draws as
+``best_25_lpips_ids``) and the FID and joint FID of each draw's Inception
+activations (``fid`` and ``joint_fid``: mean and std over the draws;
+`eval/inception.py`, `eval/fid.py`).  Where they do not, those metrics go
+to ``skipped`` with the JAX package's messages; so does the image-to-image
+consistency where cv2 does not import (`metrics.CANNY_NOTE`).
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ import torch
 from PIL import Image
 
 from ..data.degradations import random_square_mask
-from .metrics import FID_NOTE, LPIPS_NOTE, ConsistencyUnavailable, get_consistency_fn, mean_psnr, mean_ssim
+from . import inception, lpips
+from .fid import fid_from_activations, joint_fid_from_activations
+from .metrics import ConsistencyUnavailable, get_consistency_fn, mean_psnr, mean_ssim
 
 
 def load_images(paths: List[str]) -> np.ndarray:
@@ -49,6 +55,7 @@ def run_evaluation_pipeline(
     scale: int = 8,
     mask_coverage: Optional[float] = None,
     device: Union[str, torch.device] = "cuda",
+    inception_weights: Optional[str] = None,
 ) -> Dict:
     """Evaluate the trees under ``base_path`` at ``snr``; the metrics run on
     ``device``.  For inpainting, ``mask_coverage`` re-rolls each image's
@@ -94,8 +101,13 @@ def run_evaluation_pipeline(
         else:
             seeds = np.asarray([i - 1 for i in ids])
             masks = as_tensor(random_square_mask(tuple(x.shape), mask_coverage, np.random.default_rng(0), seeds=seeds))
-    results["skipped"].append(f"lpips ({LPIPS_NOTE})")
+    lpips_model = None
+    try:
+        lpips_model = lpips.load_lpips(device=device)
+    except FileNotFoundError as e:
+        results["skipped"].append(f"lpips ({e})")
 
+    per_image_lpips = {}
     for name, s in draws.items():
         entry = {"psnr": mean_psnr(s, x), "ssim": mean_ssim(s, x)}
         if consistency_fn is not None:
@@ -105,12 +117,32 @@ def run_evaluation_pipeline(
                 entry["consistency"] = float(consistency_fn(s, x))
             elif task == "inpainting" and masks is not None:
                 entry["consistency"] = float(consistency_fn(s, x, masks))
+        if lpips_model is not None:
+            per_image_lpips[name] = lpips.distances(lpips_model, x, s)
+            entry["lpips"] = float(per_image_lpips[name].mean())
         results["per_draw"][name] = entry
 
     if len(draws) > 1:
         stack = torch.stack(list(draws.values())).double()
         results["diversity"] = float(torch.std(stack, dim=0, correction=0).mean())
-    results["skipped"].append(f"fid ({FID_NOTE})")
+
+    try:
+        net = inception.load_fid_inception(inception_weights, device=device)
+        acts_x = inception.activations(net, x)
+        acts_y = inception.activations(net, load_images([y_files[i] for i in ids]))
+        fids, jfids = [], []
+        for s in draws.values():
+            acts_s = inception.activations(net, s)
+            fids.append(fid_from_activations(acts_x, acts_s))
+            jfids.append(joint_fid_from_activations(acts_y, acts_x, acts_s))
+        results["fid"] = {"mean": float(np.mean(fids)), "std": float(np.std(fids))}
+        results["joint_fid"] = {"mean": float(np.mean(jfids)), "std": float(np.std(jfids))}
+    except FileNotFoundError as e:
+        results["skipped"].append(f"fid ({e})")
+
+    if per_image_lpips:
+        mean_lpips = np.mean(np.stack(list(per_image_lpips.values())), axis=0)
+        results["best_25_lpips_ids"] = [ids[i] for i in np.argsort(mean_lpips)[:25]]
 
     with open(os.path.join(base_path, "evaluation_info.pkl"), "wb") as f:
         pickle.dump(results, f)

@@ -131,7 +131,7 @@ class DDPM(nn.Module):
         self.conv_out = Conv3x3(ch, output_channels, init_scale=0.0)
 
     @classmethod
-    def from_config(cls, config, in_channels=None):
+    def from_config(cls, config, in_channels=None, output_channels=None):
         m = config.model
         return cls(
             in_channels=in_channels if in_channels is not None else m.get("input_channels", config.data.num_channels),
@@ -144,7 +144,7 @@ class DDPM(nn.Module):
             image_size=config.data.effective_image_size,
             conditional=m.conditional,
             centered=config.data.centered,
-            output_channels=m.output_channels,
+            output_channels=output_channels if output_channels is not None else m.output_channels,
             nonlinearity=m.nonlinearity.lower(),
             split_skip_convs=m.get("split_skip_convs", True),
             fused_tail=m.get("fused_tail", False),
@@ -152,6 +152,13 @@ class DDPM(nn.Module):
         )
 
     def forward(self, x, cond):
+        if isinstance(x, dict):
+            # a conditional task's {x, y} (the Haar recipes' ``ddpm`` over all
+            # 12 Haar channels): their joint score, as ``ddpm_paired`` gives it.
+            # JAX's DDPM takes no dict and fails there.
+            xc = x["x"].shape[-1]
+            out = self.forward(torch.cat([x["x"], x["y"]], dim=-1), cond)
+            return {"x": out[..., :xc], "y": out[..., xc:]}
         act = self.act
         if self.conditional:
             # sin/cos in float32, then the activation dtype
@@ -235,7 +242,16 @@ class DDPM2xSR(DDPMPaired):
 @register_model(name="ddpm_SR")
 class DDPMSR(DDPM2xSR):
     """The name the legacy celebA bicubic multi-scale recipes give
-    `ddpm_2xSR`."""
+    `ddpm_2xSR`, whose U-Net here always outputs the squeezed x score and
+    the y score, 4 C_x + C_y channels.  Those recipes set
+    ``model.output_channels`` to 4 C_x (12), which leaves JAX's y score
+    without a channel and its two-domain loss failing."""
+
+    @classmethod
+    def from_config(cls, config):
+        d = config.data
+        channels = 4 * d.shape_x[0] + d.shape_y[0]
+        return cls(DDPM.from_config(config, in_channels=channels, output_channels=channels))
 
 
 @register_model(name="ddpm_KxSR")

@@ -1,10 +1,16 @@
 """MATLAB-compatible bicubic resize, copied from the JAX package's
-`ops/resize.py`: `resize_matrix` (numpy) and `imresize` (torch).
+`ops/resize.py`: `resize_matrix` (numpy) and `imresize` (torch); and the
+bilinear resize of `jax.image.resize(..., "bilinear")`, which the JAX
+Inception runs to 299 (`resize_bilinear`).
 
 For a fixed (in_size, out_size) pair the resize is a linear map; it is
-materialized as a dense [out, in] matrix that matches MATLAB's
+materialized as a dense [out, in] matrix.  The cubic one matches MATLAB's
 `contributions` algorithm (cubic kernel a=-0.5, antialiasing widens the
-kernel on downscale, symmetric edge padding).
+kernel on downscale, symmetric edge padding); the triangle one JAX's
+`compute_weight_mat` (half-pixel centres, the kernel widened by the
+shrink factor when it shrinks, each output's weights normalised to sum 1,
+computed in float32 as JAX does).  `F.interpolate`'s bilinear differs from
+it where it shrinks.
 """
 
 from __future__ import annotations
@@ -26,9 +32,29 @@ def _cubic(x: np.ndarray) -> np.ndarray:
     return f
 
 
+def _triangle_matrix(in_size: int, out_size: int, antialias: bool) -> np.ndarray:
+    """`jax.image.resize`'s linear weights, float32, as [out, in]."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (out_size / in_size))
+    kernel_scale = max(inv_scale, f32(1.0)) if antialias else f32(1.0)
+    sample_f = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
+    weights = np.maximum(f32(0.0), f32(1.0) - x)
+    total = np.sum(weights, axis=0, keepdims=True, dtype=f32)
+    weights = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                       weights / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return np.where(inside[None, :], weights, f32(0.0)).T.astype(f32)
+
+
 @lru_cache(maxsize=128)
-def resize_matrix(in_size: int, out_size: int, antialias: bool = True) -> np.ndarray:
-    """Dense [out_size, in_size] MATLAB-bicubic resampling matrix."""
+def resize_matrix(in_size: int, out_size: int, antialias: bool = True, kernel: str = "cubic") -> np.ndarray:
+    """Dense [out_size, in_size] resampling matrix: MATLAB's bicubic
+    (``kernel="cubic"``) or `jax.image.resize`'s bilinear (``"triangle"``)."""
+    if kernel == "triangle":
+        return _triangle_matrix(in_size, out_size, antialias)
+    if kernel != "cubic":
+        raise ValueError(f"unknown resize kernel {kernel!r}; known: cubic, triangle")
     scale = out_size / in_size
     if antialias and scale < 1:
         kernel_width = 4.0 / scale
@@ -95,3 +121,20 @@ def imresize(
         out = torch.einsum("pw,bowc->bopc", Mw, out)
     out = out.to(img.dtype)
     return out[0] if squeeze else out
+
+
+def resize_bilinear(img: torch.Tensor, out_shape: Tuple[int, int]) -> torch.Tensor:
+    """`jax.image.resize(img, (B, *out_shape, C), "bilinear")` of NHWC images:
+    two einsums over the triangle :func:`resize_matrix` (antialiased where
+    it shrinks), in ``img``'s floating type with TF32 off; a side already at
+    its size is left as it is, as JAX leaves it."""
+    _, H, W, _ = img.shape
+    out_h, out_w = out_shape
+    with full_float32():
+        if out_h != H:
+            Mh = torch.from_numpy(resize_matrix(H, out_h, True, "triangle")).to(img.device, img.dtype)
+            img = torch.einsum("oh,bhwc->bowc", Mh, img)
+        if out_w != W:
+            Mw = torch.from_numpy(resize_matrix(W, out_w, True, "triangle")).to(img.device, img.dtype)
+            img = torch.einsum("pw,bowc->bopc", Mw, img)
+    return img

@@ -7,6 +7,13 @@ reduction ``f(x) = xk*yk*y0 / (x*(y0-yk) + xk*yk)``.  A sampler restores
 sigma_y at a checkpoint's step from it (the JAX `eval/harness.py:81-87`):
 
     sde, eps = build_sde(config, *sigma_y_at_step(config, step))
+
+A recipe with no ``model.reach_target_steps`` keeps sigma_y at its
+``model.sigma_min_y`` / ``sigma_max_y``: the celebA Haar scales 80 and 160
+name their schedule by legacy knobs (``model.reduction``,
+``reach_target_in_epochs``, ``starting_transition_iterations``) that no
+code reads and give no target, where JAX's schedule fails on the missing
+field.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ def reduction_fn(x, y0: float, xk: float, yk: float) -> torch.Tensor:
 def sigma_y_at_step(config, step) -> Tuple[float, float]:
     """``(sigma_min_y, sigma_max_y)`` of a VS-CMDE recipe at ``step``."""
     m = config.model
+    if "reach_target_steps" not in m:
+        return float(m.sigma_min_y), float(m.sigma_max_y)
     smax = reduction_fn(step, m.sigma_max_y, m.reach_target_steps, m.sigma_max_y_target)
     smin = reduction_fn(step, m.sigma_min_y, m.reach_target_steps, m.sigma_min_y_target)
     return float(smin), float(smax)

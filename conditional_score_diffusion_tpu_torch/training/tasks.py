@@ -2,7 +2,10 @@
 ``training.lightning_module`` names the task that binds config and model
 into the SDE of a step, batch preparation and the sampler.
 
-Ported: ``base`` (an unconditional model), ``conditional`` (CDE/CDiffE/CMDE),
+Ported: ``base`` (an unconditional model), ``conditional`` (CDE/CDiffE/CMDE;
+a bare array batch of the ``haar_multiscale`` datamodule is split into its
+9 Haar detail bands ``x`` and approximation band ``y``, where the JAX
+task hands the array to a loss that indexes ``batch["x"]`` and fails),
 ``conditional_decreasing_variance`` (VS-CMDE: the SDE of a step carries
 the scheduled sigma_y), its older single-sigma variant
 ``deprecated_conditional_decreasing_variance``, and the Haar tasks
@@ -64,6 +67,16 @@ class ConditionalTask(BaseTask):
     """CDE/CDiffE/CMDE."""
 
     conditional = True
+
+    def prepare_batch(self, batch):
+        """``{'x', 'y'}`` as it is; a bare NHWC array (the ``haar_multiscale``
+        trees: images at level 0, approximation bands deeper) as ``{'x':
+        detail bands, 'y': approximation band}`` of its Haar transform."""
+        if isinstance(batch, dict):
+            return batch
+        z = haar_ops.haar_forward(torch.from_numpy(batch)).numpy()
+        c = batch.shape[-1]
+        return {"x": z[..., c:], "y": z[..., :c]}
 
     def sampling_fn(self, shape, **overrides) -> Callable:
         """``fn(noise, model, y, show_evolution=False) -> (samples, info)``."""

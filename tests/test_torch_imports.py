@@ -72,6 +72,7 @@ def test_port_imports_without_jax():
         "sampling.odeint", "sampling.ode", "sampling.likelihood", "sampling.controllable", "eval.bpd",
         "data.degradations", "data.paired", "data.statistics", "configs.inverse_problems", "models.ddpm3d",
         "models.ncsnv2", "models.normalization", "losses.discrete", "data.image_folder", "configs.song",
-        "configs.ncsn_legacy", "configs.score_sde",
+        "configs.ncsn_legacy", "configs.score_sde", "data.builder", "data.sr_multiscale", "eval.fid",
+        "eval.inception", "eval.lpips",
     ):
         assert f"conditional_score_diffusion_tpu_torch.{name}" in names, name

@@ -1,8 +1,8 @@
 """The port's data for the inverse problems against the JAX package's, on
 synthetic files written by the tests.
 
-* `LRHR_PKLDataset` refuses random crops in every split and rotations in
-  the train split, where JAX would crop or rotate (the port has neither).
+* `LRHR_PKLDataset` crops in every split and rotates in the train split,
+  batch for batch as JAX's slow path does (one generator, in turn).
 * ``--mode compute_dataset_statistics``: the Haar detail mean of the first
   2 train batches of a synthetic 40px `.pklv4` resized to 32, against
   JAX's `compute_dataset_statistics` at 1e-6 of its largest magnitude;
@@ -74,20 +74,34 @@ def sized(config, base, image_size=32, batch=4):
     return config
 
 
-# ---- LRHR_PKLDataset: crops and rotations are refused ----------------------
+# ---- LRHR_PKLDataset: crops and rotations ------------------------------------
 
 
 @pytest.mark.parametrize("phase,use_crop,use_rot", [
     ("train", True, False), ("val", True, False), ("test", True, False), ("train", False, True),
 ])
 def test_lrhr_refuses_crops_and_train_rotations(phase, use_crop, use_rot):
-    config = texture160_kxsr_ncsnpp_config()
-    config.data.use_crop, config.data.use_rot = use_crop, use_rot
+    """Where JAX crops (every split) or rotates (train), the port's batch of
+    the same pairs and generator is JAX's exactly (its slow path); the
+    refusal these cases once met is gone."""
+    from conditional_score_diffusion_tpu.configs.srflow import df2k_config
+
+    rng = np.random.RandomState(3)
+    hr = [rng.randint(0, 256, (176, 176, 3), dtype=np.uint8) for _ in range(3)]
+    lr = [rng.randint(0, 256, (44, 44, 3), dtype=np.uint8) for _ in range(3)]
+    config, jconfig = texture160_kxsr_ncsnpp_config(), df2k_config("direct")
+    for c in (config, jconfig):
+        c.data.use_crop, c.data.use_rot = use_crop, use_rot
     dm = pkl_datasets.PKLDataModule(config)
-    image = np.zeros((8, 8, 3), np.uint8)
-    dm._images[phase] = {"hr": [image], "lr": [image[:2, :2]]}
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        dm.make_batch_fn(phase)
+    dm._images[phase] = {"hr": hr, "lr": lr}
+    jdm = jax_create_datamodule(jconfig)
+    jdm.images = {phase: {"hr": hr, "lr": lr}}
+    idx = np.array([2, 0, 1])
+    got = dm.make_batch_fn(phase)(idx, np.random.default_rng(7))
+    want = jdm._make_batch_fn(phase)(idx, np.random.default_rng(7))
+    assert got["x"].shape == ((3, 160, 160, 3) if use_crop else (3, 176, 176, 3))
+    for k in ("x", "y"):
+        np.testing.assert_array_equal(got[k], want[k])
 
 
 def test_lrhr_rotation_flag_leaves_the_test_split_as_it_is():

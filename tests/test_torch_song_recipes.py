@@ -6,8 +6,9 @@ the path table `configs/score_sde.py`) and the ``image`` datamodule
   that builds on those recipe functions or on one the port has (52
   files; `configs/ve/inverse_problems/` has its own table) loads through
   the table by its path, by key and through `main.load_config`, and equals the JAX file's `get_config()` field by
-  field (`test_torch_recipes.assert_same`); the table covers the tree but
-  the files left out (Haar flow, SRFlow).
+  field (`test_torch_recipes.assert_same`); with the 25 Haar-flow and
+  SRFlow files (`tests/test_torch_haar_recipes.py`) the table covers the
+  tree.
 * The recipe functions with each argument.
 * The texture twins: the JAX recipe with only its data changed; the
   folder writer on a synthetic source.
@@ -46,8 +47,9 @@ from conditional_score_diffusion_tpu_torch.training.trainer import read_scalars
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the recipe files the table leaves out, and why (ROADMAP.md section 1)
-LEFT_OUT = ("ve/haarflow/", "vp/haarflow/", "ve/srflow/")  # haar_multiscale and the 12b recipes; the SRFlow trees
+# the recipe files `tests/test_torch_haar_recipes.py` holds
+LEFT_OUT = ("ve/haarflow/", "vp/haarflow/", "ve/srflow/")
+SCORE_SDE_KEYS = sorted(k for k in score_sde.RECIPES if not k.startswith(LEFT_OUT))
 
 
 def jax_recipe(key):
@@ -64,11 +66,12 @@ def test_the_table_covers_the_tree():
             key = os.path.relpath(path, os.path.join(REPO, "configs"))[: -len(".py")]
             if not key.startswith("ve/inverse_problems/") and not key.startswith(LEFT_OUT):
                 files.append(key)
-    assert len(files) == len(score_sde.RECIPES) == 52
-    assert sorted(files) == sorted(score_sde.RECIPES)
+    assert len(files) == len(SCORE_SDE_KEYS) == 52
+    assert sorted(files) == SCORE_SDE_KEYS
+    assert len(score_sde.RECIPES) == 52 + 25
 
 
-@pytest.mark.parametrize("key", sorted(score_sde.RECIPES))
+@pytest.mark.parametrize("key", SCORE_SDE_KEYS)
 def test_recipe_file_matches_jax(key):
     want = jax_recipe(key)
     assert_same(want, score_sde.RECIPES[key]())

@@ -79,15 +79,33 @@ def test_datamodule_batches_match_jax(dataset_type):
             np.testing.assert_array_equal(g, w)
 
 
-def test_unported_datamodules_name_their_item():
-    """The datamodules still to port name their ROADMAP item; ``image``
-    (`data/image_folder.py`), ``paired`` and ``DUAL-GLOW`` (`data/paired.py`)
-    are ported: they build, and read their folder or A/B tree at setup."""
+def test_unported_datamodules_name_their_item(tmp_path):
+    """Every JAX datamodule is ported: ``haar_multiscale`` and
+    ``bicubic_multiscale`` build and yield a batch of a written tree (they
+    once named their ROADMAP item); ``image`` (`data/image_folder.py`),
+    ``paired`` and ``DUAL-GLOW`` (`data/paired.py`) build, and read their
+    folder or A/B tree at setup."""
+    from PIL import Image
+
+    from conditional_score_diffusion_tpu_torch.data.builder import create_haar_dataset
+
+    src = tmp_path / "celebA"
+    src.mkdir()
+    rng = np.random.RandomState(0)
+    for i in range(8):
+        Image.fromarray(rng.randint(0, 256, (16, 16, 3), dtype=np.uint8)).save(src / f"{i:03d}.jpg")
+    create_haar_dataset(str(src), str(tmp_path), "celebA", 16, max_depth=1, split=(0.5, 0.25, 0.25), seed=0)
     config = synthetic_config()
-    for name in ("haar_multiscale", "bicubic_multiscale"):
-        config.data.datamodule = name
-        with pytest.raises(NotImplementedError, match="item 12"):
-            create_datamodule(config)
+    config.data.base_dir, config.data.dataset, config.data.target_resolution = str(tmp_path), "celebA", 16
+    for name, size, level, want in (("haar_multiscale", 8, 1, (2, 8, 8, 3)), ("bicubic_multiscale", 8, 1, None)):
+        config.data.datamodule, config.data.image_size, config.data.level = name, size, level
+        dm = create_datamodule(config)
+        dm.setup()
+        batch = next(dm.train_iterator(batch_size=2))
+        if want is not None:
+            assert batch.shape == want
+        else:
+            assert batch["x"].shape == (2, 8, 8, 3) and batch["y"].shape == (2, 4, 4, 3)
     config.data.datamodule, config.data.base_dir, config.data.dataset = "image", "no_such_dir", "images"
     dm = create_datamodule(config)
     assert type(dm).__name__ == "ImageDataModule"
