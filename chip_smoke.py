@@ -297,8 +297,29 @@ Phases, each printing its own line with its seconds:
    pipeline with ``CSDT_INCEPTION_WEIGHTS`` / ``CSDT_LPIPS_ALEXNET`` /
    ``CSDT_LPIPS_LIN`` set reports ``lpips``, ``fid``, ``joint_fid`` and
    ``best_25_lpips_ids``.
-26. result: a JSON line of the kernels (with each one's launches on the
-   paths of phases 10-25), the nvidia-smi line, and last
+26. main (data parallelism, new; `parallel/`): the flagship trainer
+   (`texture160_sr_cmde_conv3x3`, B=16, kernel 4) `Trainer.fit(4)` under a
+   one-rank NCCL group (``file://`` rendezvous) against the same fit
+   without one, cuDNN held to its deterministic algorithms: losses, params,
+   EMA and the all-reduced eval loss bit for bit; kernel 4's launches
+   equal; the profiler window on steps 3-4 attributed by
+   `profiling.attribute` (family table printed), its ``conv3x3_gemm``
+   launches equal to the counter's increase over those steps and its device
+   total within 2% of ``key_averages()``; ms per step each way.
+27. main (sharded sampling, new): the bfloat16 flagship sampler, 2 steps at
+   B=8, through `parallel.shard_sampling_fn` at world 1 against the plain
+   call: samples bit for bit, kernels 1-3 at equal counts.
+28. setup / agreement (reference checkpoints, new;
+   `models/reference_checkpoint.py`): the flagship ``ddpm_paired`` with
+   seeded weights written as a reference Lightning ``.ckpt`` whose
+   ``hyper_parameters`` cannot be imported, loaded onto the card: its state
+   dict equal to `convert.py`'s of the same arrays, then float32 with
+   kernels 1-3 on against off (``agreement``, 1e-4) at their counts.
+29. main (the host batch, new; `data/native.py`): 16 texture160 images,
+   GT up 1 and a 20px LQ up 8, with flips, through the C++ path and numpy:
+   bit for bit, ms a batch each way.
+30. result: a JSON line of the kernels (with each one's launches on the
+   paths of phases 10-29), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The step counts of the paths without a quality band (5-8, 10-12, 14, 18,
@@ -428,10 +449,13 @@ from conditional_score_diffusion_tpu_torch.ops.upfirdn import setup_kernel  # no
 from conditional_score_diffusion_tpu_torch.profile_sampler import plain_versions, sampler_sde  # noqa: E402
 from conditional_score_diffusion_tpu_torch.profile_train_step import (  # noqa: E402
     kernel_ms,
-    kernel_table,
     plain_fir_ms,
     recording_upfirdn,
 )
+from conditional_score_diffusion_tpu_torch import parallel, profiling  # noqa: E402
+from conditional_score_diffusion_tpu_torch.data import native  # noqa: E402
+from conditional_score_diffusion_tpu_torch.models import reference_checkpoint  # noqa: E402
+from conditional_score_diffusion_tpu_torch.models.convert import flax_to_state_dict, state_dict_to_flax  # noqa: E402
 from conditional_score_diffusion_tpu_torch.losses import build_loss_fn  # noqa: E402
 from conditional_score_diffusion_tpu_torch.sampling import (  # noqa: E402
     get_conditional_sampling_fn,
@@ -2841,7 +2865,10 @@ def run_ncsnpp_trainer(per_forward_fir):
                             for p, q in zip(a.model.parameters(), b.model.parameters())
                             for k in ("exp_avg", "exp_avg_sq", "step")))
         del again
-        device_ms, rows = kernel_table(trainer.profile, trainer.profile_steps)
+        attribution = profiling.attribute(profile_dir)
+        device_ms = profiling.device_ms(attribution) / trainer.profile_steps
+        rows = [(r["name"], r["total_ps"] / 1e9 / trainer.profile_steps, r["occurrences"] / trainer.profile_steps)
+                for r in attribution["top_ops"]]
         batch = to_device(next(trainer.datamodule.train_iterator()), trainer.device)
         with recording_upfirdn() as calls:
             trainer.train_step(trainer.state, batch)
@@ -2859,7 +2886,9 @@ def run_ncsnpp_trainer(per_forward_fir):
             train_loss=losses, grad_norm=norms, ema_tensors_moved=ema_moved, fourier_w_unchanged=w_same,
             checkpoint_restored_exactly=restored, trace_files=traces, trace_mib=trace_mb,
             profile_steps=trainer.profile_steps, device_ms_per_step=device_ms,
-            kernel_launches_per_step=sum(r[2] for r in rows), top_kernels=rows[:25],
+            kernel_launches_per_step=profiling.kernel_launches(attribution) / trainer.profile_steps,
+            families={k: v["ms"] / trainer.profile_steps for k, v in attribution["families"].items()},
+            top_kernels=rows[:25],
             plain_fir_ms_per_step=fir_ms, plain_fir_calls_per_step=sum(calls.values()),
             plain_fir_share=fir_ms / device_ms, launches=launches, expected_launches=expected,
             callback_failures=dict(trainer.callback_failures), **split,
@@ -4029,6 +4058,321 @@ def run_perceptual():
                 launches=launches)
 
 
+# ---- phases 26-29: data parallelism, trace attribution, reference checkpoints, the host batch
+
+DP_TRAIN_STEPS = 4  # Trainer.fit of phase 26, each way
+DP_PROFILE_STEPS = 2  # its profiler window: steps 3-4
+DP_TIMED_STEPS = 3  # steps timed each way after the fits
+SHARD_STEPS = 2  # the sharded bf16 flagship sampler of phase 27
+HOST_BATCH, HOST_REPEATS = 16, 5  # phase 29: images a batch, timed batches each way
+
+
+def init_world_one(directory):
+    """A one-rank NCCL group through a ``file://`` rendezvous in ``directory``."""
+    return parallel.init_distributed("cuda", init_method=f"file://{directory}/pg", rank=0, world_size=1)
+
+
+def update_rel(got, want, start):
+    """``||got - want|| / ||want - start||`` over every tensor of the same
+    names: how far apart two runs' updates from ``start`` are, by norm (an
+    element's difference over the largest magnitude would be ruled by
+    Adam's ~lr steps of rounding-noise gradients in zero-initialized
+    tensors)."""
+    diff = sum(float((got[n] - w).double().square().sum()) for n, w in want.items())
+    update = sum(float((w - start[n]).double().square().sum()) for n, w in want.items())
+    return math.sqrt(diff / update)
+
+
+def run_data_parallel_trainer():
+    """Phase 26: `Trainer.fit` of the flagship trainer (kernel 4, float32,
+    B=16) under a one-rank NCCL group against the same fit without one, with
+    cuDNN held to its deterministic algorithms (``cudnn.deterministic``, no
+    benchmark; restored after): losses, params, EMA and the eval loss bit
+    for bit; kernel 4's launches; the profiler window on steps 3-4 of the
+    distributed run attributed by `profiling.attribute`, its conv3x3_gemm
+    launches against the counter's increase over those steps and its device
+    total against `key_averages()`; ms per step each way.  Each run starts
+    with the card's memory as the first found it (the previous trainer
+    freed, the cache emptied)."""
+    t = time.perf_counter()
+    config = train_configs()
+    config.training.log_freq = 1
+    config.training.eval_freq = config.training.snapshot_freq = 10**9
+    config.eval.loss_split = "test"  # the val split is not copied to the card
+    with tempfile.TemporaryDirectory() as tmp:
+
+        def fit(label, profile_dir=None):
+            trainer = Trainer(config, os.path.join(tmp, label))
+            start = {n: p.detach().cpu() for n, p in trainer.model.named_parameters()}
+            per_step, step = [], trainer.train_step
+
+            def count_launches(state, batch, **kwargs):
+                before = WRAPPERS["conv3x3"].launches
+                metrics = step(state, batch, **kwargs)
+                per_step.append(WRAPPERS["conv3x3"].launches - before)
+                return metrics
+
+            trainer.train_step = count_launches
+            env = {"CSDT_PROFILE_DIR": profile_dir, "CSDT_PROFILE_STEPS": str(DP_PROFILE_STEPS)} if profile_dir else {}
+            os.environ.update(env)
+            zero_launches()
+            try:
+                history = trainer.fit(max_steps=DP_TRAIN_STEPS, callbacks=[])
+            finally:
+                for k in env:
+                    del os.environ[k]
+            run = dict(
+                launches=read_launches(), per_step=per_step, losses=[v for _, v in history["train_loss"]],
+                start=start, params={n: p.detach().cpu() for n, p in trainer.model.named_parameters()},
+                ema={n: p.cpu() for n, p in trainer.state.ema.params.items()},
+                eval_loss=trainer.run_eval(DP_TRAIN_STEPS),
+            )
+            if trainer.profile is not None:
+                # device time by key_averages(): kernels and copies; the GPU spans of annotations
+                # (e.g. Optimizer.step) are kept apart, they cover kernels already counted
+                spans = {ev["name"] for f in profiling.find_trace_files(profile_dir) for ev in profiling.parse_trace(f)
+                         if ev.get("cat") == "gpu_user_annotation"}
+                cuda = [e for e in trainer.profile.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+                annotation = [e for e in cuda if e.key in spans or getattr(e, "is_user_annotation", False)]
+                run["key_averages_ms"] = sum(e.self_device_time_total for e in cuda if e not in annotation) / 1e3
+                run["annotations"] = {e.key: e.self_device_time_total / 1e3 for e in annotation}
+            # ms per step on a fixed batch (host clock), after the compared state was copied
+            trainer.train_step = step
+            batch = to_device(trainer.task.prepare_batch(next(trainer.datamodule.train_iterator())), trainer.device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DP_TIMED_STEPS):
+                step(trainer.state, batch)
+            torch.cuda.synchronize()
+            run["ms_per_step"] = (time.perf_counter() - t0) / DP_TIMED_STEPS * 1e3
+            del trainer, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+            return run
+
+        profile_dir = os.path.join(tmp, "profile")
+        cudnn = torch.backends.cudnn
+        flags = cudnn.deterministic, cudnn.benchmark
+        cudnn.deterministic, cudnn.benchmark = True, False
+        try:
+            plain = fit("plain", os.path.join(tmp, "profile_plain"))
+            init_world_one(tmp)
+            try:
+                dist_run = fit("distributed", profile_dir)
+            finally:
+                torch.distributed.destroy_process_group()
+        finally:
+            cudnn.deterministic, cudnn.benchmark = flags
+        bitwise = dict(
+            loss=dist_run["losses"] == plain["losses"], eval_loss=dist_run["eval_loss"] == plain["eval_loss"],
+            **{k: all(torch.equal(dist_run[k][n], v) for n, v in plain[k].items()) for k in ("params", "ema")})
+        # where they differ, by how much: the update's norm
+        update_gap = {k: update_rel(dist_run[k], plain[k], plain["start"]) for k in ("params", "ema")}
+        ms_dist, ms_plain = dist_run["ms_per_step"], plain["ms_per_step"]
+        attribution = profiling.attribute(profile_dir)
+        plain_families = profiling.attribute(os.path.join(tmp, "profile_plain"))["families"]
+        averages_ms = dist_run["key_averages_ms"]
+        traced_ms = profiling.device_ms(attribution)
+        gemm = attribution["families"].get("conv3x3_gemm", {}).get("occurrences", 0)
+        counted = sum(dist_run["per_step"][2:2 + DP_PROFILE_STEPS])
+    fwd, dx = CONV_PER_TRAIN_STEP
+    expected = {name: 0 for name in WRAPPERS}
+    expected["conv3x3"] = DP_TRAIN_STEPS * (fwd + dx)
+    ok = (all(bitwise.values()) and dist_run["launches"] == plain["launches"] == expected and gemm == counted
+          and dist_run["per_step"] == [fwd + dx] * DP_TRAIN_STEPS
+          and abs(traced_ms - averages_ms) <= 0.02 * averages_ms and attribution["files"]
+          and all(math.isfinite(v) for v in dist_run["losses"]))
+    result = dict(
+        path="float32 trainer under a one-rank NCCL group (parallel)", steps=DP_TRAIN_STEPS,
+        launches=dist_run["launches"], expected_launches=expected, plain_launches=plain["launches"],
+        train_loss=dist_run["losses"], train_loss_plain=plain["losses"], eval_loss=dist_run["eval_loss"],
+        eval_loss_plain=plain["eval_loss"], bitwise_equal=bitwise, update_rel_err=update_gap,
+        ms_per_step_distributed=ms_dist, ms_per_step_plain=ms_plain, traced_steps=[3, 2 + DP_PROFILE_STEPS],
+        trace_conv3x3_gemm=gemm, counter_conv3x3_over_traced_steps=counted, trace_device_ms=traced_ms,
+        key_averages_device_ms=averages_ms, key_averages_annotations_ms=dist_run["annotations"],
+        trace_kernel_ms=attribution["total_ms"],
+        trace_memcpy_memset_ms=attribution["async_overlapped_ms"], streams=attribution["planes"],
+        families={k: {"ms_per_step": v["ms"] / DP_PROFILE_STEPS, "share": v["share"],
+                      "launches_per_step": v["occurrences"] / DP_PROFILE_STEPS}
+                  for k, v in attribution["families"].items()},
+        family_ms_per_step_minus_plain={
+            k: (attribution["families"].get(k, {}).get("ms", 0.0) - plain_families.get(k, {}).get("ms", 0.0))
+            / DP_PROFILE_STEPS for k in set(attribution["families"]) | set(plain_families)},
+    )
+    phase("main", t,
+          f"{result['path']}: Trainer.fit({DP_TRAIN_STEPS}) B={TRAIN_BATCH}; train_loss"
+          f" {['%.6f' % v for v in dist_run['losses']]} (plain {['%.6f' % v for v in plain['losses']]});"
+          f" bit for bit the plain run's (cuDNN deterministic): {bitwise} (params and EMA apart by"
+          f" {update_gap['params']:.3e} and {update_gap['ema']:.3e} of the update's norm; the eval loss is the"
+          f" all-reduced mean); ms per step"
+          f" (host clock, a fixed batch, {DP_TIMED_STEPS} steps) distributed {ms_dist:.3f}, plain {ms_plain:.3f};"
+          f" kernel 4 launches {dist_run['launches']['conv3x3']} (plain {plain['launches']['conv3x3']}, expected"
+          f" {expected['conv3x3']}); trace of steps 3-{2 + DP_PROFILE_STEPS}: conv3x3_gemm {gemm} launches against"
+          f" the counter's {counted}; device time {traced_ms:.3f} ms (kernels {attribution['total_ms']:.3f} +"
+          f" memcpy/memset {attribution['async_overlapped_ms']:.3f}) against key_averages() {averages_ms:.3f}"
+          f" (within 2%; its annotations' GPU spans apart: {dist_run['annotations']}) {'ok' if ok else 'FAIL'}")
+    for line in profiling.per_unit_lines(attribution, DP_PROFILE_STEPS, 10):
+        print(f"  {line}", flush=True)
+    print("  device ms a step by family, distributed minus plain (both traced, steps 3-4): " + ", ".join(
+        f"{k} {v:+.3f}" for k, v in sorted(result["family_ms_per_step_minus_plain"].items())), flush=True)
+    if not ok:
+        raise RuntimeError("the data-parallel train step at world 1 disagrees with the plain one, or its launches or"
+                           " its trace's attribution do not add up")
+    return result
+
+
+def run_sharded_sampler():
+    """Phase 27: the bfloat16 flagship conditional PC sampler through
+    `parallel.shard_sampling_fn` under a one-rank NCCL group against the
+    plain call: the same samples bit for bit, kernels 1-3 at the same counts."""
+    t = time.perf_counter()
+    config = texture160_sr_cmde_bf16_block_config()
+    config.data.base_dir = os.path.join(REPO, "datasets")
+    y = torch.from_numpy(next(iter_test_batches(config))["y"]).cuda()
+    model = init_model_random(config, seed=config.seed, device="cuda")
+    sde, eps = sampler_sde(config)
+    score = score_fn(model, sde, torch.bfloat16)
+    shape = (BATCH, 160, 160, 3)
+    runs = {}
+    for label in ("plain", "sharded"):
+        directory = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+        sharded = label == "sharded"
+        if sharded:
+            init_world_one(directory)
+        try:
+            sampler = pc_sampler(config, sde, eps, shape, p_steps=SHARD_STEPS)
+            if sharded:
+                sampler = parallel.shard_sampling_fn(sampler)
+            zero_launches()
+            t0 = time.perf_counter()
+            samples = sampler(torch.Generator(device="cuda").manual_seed(config.seed), score, y)[0]
+            torch.cuda.synchronize()
+            runs[label] = dict(samples=samples, launches=read_launches(), wall_s=time.perf_counter() - t0)
+        finally:
+            if sharded:
+                torch.distributed.destroy_process_group()
+            shutil.rmtree(directory, ignore_errors=True)
+    got, want = runs["sharded"], runs["plain"]
+    expected = {name: PER_FORWARD_BLOCK_PATH.get(name, 0) * 2 * SHARD_STEPS for name in WRAPPERS}
+    same = torch.equal(got["samples"], want["samples"])
+    ok = same and got["launches"] == want["launches"] == expected and bool(torch.isfinite(got["samples"]).all())
+    result = dict(path="bfloat16 flagship sampler, sharded (parallel) at world 1", steps=SHARD_STEPS,
+                  launches=got["launches"], expected_launches=expected, bitwise_equal=same,
+                  wall_s=got["wall_s"], wall_s_plain=want["wall_s"])
+    phase("main", t,
+          f"{result['path']}: {SHARD_STEPS}-step sampler B={BATCH}, samples bit for bit the plain call's: {same};"
+          f" launches {got['launches']} (plain {want['launches']}, expected {expected}); {got['wall_s']:.3f} s"
+          f" (plain {want['wall_s']:.3f} s, the first includes cuDNN's plans) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the sharded sampler at world 1 differs from the plain call")
+    return result
+
+
+def write_reference_ckpt(path, sd):
+    """A reference Lightning checkpoint: ``score_model.`` keys and
+    ``hyper_parameters`` of a class that cannot be imported when it is read
+    (the reference's ConfigDict on a machine without ml_collections)."""
+    import types
+
+    mod = types.ModuleType("chip_smoke_absent_hparams")
+
+    class ConfigDict:
+        def __init__(self):
+            self.model = {"name": "ddpm_paired", "nf": 96}
+
+    ConfigDict.__module__, ConfigDict.__qualname__ = mod.__name__, "ConfigDict"
+    mod.ConfigDict = ConfigDict
+    sys.modules[mod.__name__] = mod
+    try:
+        torch.save({"state_dict": {f"score_model.{k}": v for k, v in sd.items()},
+                    "hyper_parameters": ConfigDict(), "epoch": 0}, path)
+    finally:
+        del sys.modules[mod.__name__]
+
+
+def run_reference_checkpoint():
+    """Phase 28: the flagship ``ddpm_paired`` (celebA 160, nf 96) with seeded
+    weights written as a reference Lightning ``.ckpt`` and loaded through
+    `load_reference_lightning_checkpoint` onto the card: its state dict
+    against the same arrays through `convert.flax_to_state_dict`, then
+    float32 with fused_tail and fused_block on against both off
+    (`agreement`, the bound of the other agreement phases)."""
+    t = time.perf_counter()
+    on_config = texture160_sr_cmde_bf16_block_config()  # float32 weights; kernels 1-3 on
+    on_config.data.base_dir = os.path.join(REPO, "datasets")
+    off_config = texture160_sr_cmde_config()
+    off_config.model.fused_tail = False
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(iter_test_batches(on_config)).items()}
+    params = state_dict_to_flax(init_model_random(on_config, seed=on_config.seed + 28, device="cuda").state_dict())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "reference.ckpt")
+        reference = reference_checkpoint.to_reference_state_dict(params, on_config)
+        write_reference_ckpt(path, reference)
+        size_mb = os.path.getsize(path) / 2**20
+        try:
+            torch.load(path, map_location="cpu", weights_only=True)
+            refused = False
+        except pickle.UnpicklingError:
+            refused = True
+        model = create_model(on_config, "cuda")
+        loaded = reference_checkpoint.load_reference_lightning_checkpoint(path, on_config, model=model)
+    want = flax_to_state_dict(params)
+    on_card = model.state_dict()
+    exact = sorted(loaded) == sorted(want) and all(torch.equal(loaded[k], want[k]) for k in want)
+    exact = exact and all(torch.equal(on_card[k].cpu(), want[k]) for k in want)
+    phase("setup", t, f"reference checkpoint: {len(reference)} reference tensors, {size_mb:.1f} MiB, weights_only"
+                      f" refused its hyper_parameters: {refused}; state dict equal to convert.py's: {exact}")
+    if not (exact and refused):
+        raise RuntimeError("the reference checkpoint's state dict differs from convert.py's, or torch's safe"
+                           " loader read its unimportable hyper_parameters")
+    per_forward = per_name(forward_calls(on_config, BATCH))
+    zero_launches()
+    agree = agreement("float32 block path from a reference checkpoint", on_config, off_config, model, batch, None,
+                      REL_TOL[torch.float32])
+    launches = read_launches()
+    expected = {name: per_forward.get(name, 0) * (1 + 2 * 3 + 1) for name in WRAPPERS}  # score, 3 steps, raw
+    agree.update(state_dict_exact=exact, safe_loader_refused=refused, launches=launches, expected_launches=expected)
+    print(f"[agreement] reference checkpoint: kernels 1-3 launches {launches} (expected {expected})"
+          f" {'ok' if launches == expected else 'FAIL'}", flush=True)
+    if launches != expected:
+        raise RuntimeError(f"reference checkpoint: launches {launches}, expected {expected}")
+    return dict(path="float32 block path from a reference checkpoint", launches=launches), agree
+
+
+def run_host_batch():
+    """Phase 29: 16 texture160 images through `data.native.assemble_batch`
+    (the GT at 160px, up 1; their 20px nearest LQ, up 8; random flips),
+    the C++ path against numpy bit for bit, ms a batch each way."""
+    t = time.perf_counter()
+    hr = load_pkl_images(os.path.join(REPO, "datasets", "texture160", "texture160-train.pklv4"), HOST_BATCH)
+    lr = [np.ascontiguousarray(im[::8, ::8]) for im in hr]
+    flips = (np.random.default_rng(29).random(HOST_BATCH) < 0.5).astype(np.uint8)
+    rows = {}
+    for label, images, up in (("GT 160px, up 1", hr, 1), ("LQ 20px, up 8", lr, 8)):
+        ms = {}
+        for backend in ("native", "numpy"):
+            times = []
+            for _ in range(HOST_REPEATS):
+                t0 = time.perf_counter()
+                out = native.assemble_batch(images, up=up, flips=flips, backend=backend)
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[backend] = (float(np.median(times)), out)
+        same = ms["native"][1].tobytes() == ms["numpy"][1].tobytes()
+        out = ms["native"][1]
+        rows[label] = dict(shape=list(out.shape), bitwise_equal=same, native_ms=ms["native"][0],
+                           numpy_ms=ms["numpy"][0], threads=native.threads_for(len(images), out.nbytes))
+    ok = all(r["bitwise_equal"] for r in rows.values())
+    cores = len(os.sched_getaffinity(0))
+    phase("main", t, f"host batch (data/native.py, {cores} cores): " + "; ".join(
+        f"{k} {r['shape']}: native ({r['threads']} thread(s)) {r['native_ms']:.3f} ms, numpy {r['numpy_ms']:.3f} ms"
+        f" a batch (median of {HOST_REPEATS}), bit for bit {r['bitwise_equal']}" for k, r in rows.items())
+        + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the C++ host batch differs from numpy's")
+    return dict(path="host batch (data/native.py)", cores=cores, batches=rows,
+                launches={name: 0 for name in WRAPPERS})
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4243,6 +4587,11 @@ def main() -> int:
     multiscale_paths, agree_multiscale, multiscale_rows = run_multiscale_recipes()
     new_paths += multiscale_paths + [run_perceptual()]
 
+    # ---- data parallelism, trace attribution, reference checkpoints, the host batch
+    dp_train, dp_sampler = run_data_parallel_trainer(), run_sharded_sampler()
+    reference_path, agree_reference = run_reference_checkpoint()
+    new_paths += [dp_train, dp_sampler, reference_path, run_host_batch()]
+
     bf16 = torch.bfloat16
     tail_line = per_forward_row(
         "gn_silu_conv3x3", "conditional_score_diffusion_tpu_torch/csrc/gn_silu_conv3x3.cu",
@@ -4353,7 +4702,7 @@ def main() -> int:
         k["launches_other_paths"] = {p["path"]: p["launches"][name] for p in new_paths if p["launches"][name]}
     paths = [main_new, main_tail, main_ncsnpp, main_train, main_train_off, main_harness] + new_paths
     agree += [agree_train, agree_texture64] + agree_estimators + [agree_uncond, agree_pyramid] + agree_sequential
-    agree += [agree_direct, agree_haar] + agree_inverse + [agree_score_sde] + agree_multiscale
+    agree += [agree_direct, agree_haar] + agree_inverse + [agree_score_sde] + agree_multiscale + [agree_reference]
     print(json.dumps({"kernels": kernels, "paths": paths, "agreement": agree}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -2,9 +2,9 @@
 `data/pkl_datasets.py` batches them.
 
 Copied from there: `pkl_paths`, `load_pkl_images`, `_iterate` and the
-batches of two datamodules (:class:`PKLDataModule`; the numpy batch assembly
-of `data/native.py`, which its C++ extension only speeds up, by one float32
-ulp):
+batches of two datamodules (:class:`PKLDataModule`); the images become a
+float32 batch, flipped and (the LQ images of ``upscale_lr``) upsampled, in
+the C++ host path of `data/native.py`, as JAX routes them:
 
 * `General_PKLDataset`: GT images (resized bicubic to ``data.image_size``
   where they differ) degraded on the fly by ``data.task``:
@@ -40,13 +40,12 @@ from __future__ import annotations
 
 import os
 import pickle
-import queue
-import threading
 from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 
 from . import register_datamodule
+from .native import PrefetchIterator, assemble_batch  # noqa: F401  (PrefetchIterator: re-exported)
 from .degradations import (
     bicubic_resize_np,
     grayscale,
@@ -102,15 +101,6 @@ def load_pkl_images(path: str, n_max: int = int(1e9)) -> List[np.ndarray]:
     return [np.asarray(im) for im in images[:n_max]]
 
 
-def assemble_batch(images: List[np.ndarray], flips: Optional[np.ndarray] = None) -> np.ndarray:
-    """uint8 HWC images -> one float32 [0, 1] NHWC batch; image ``i``
-    flipped horizontally where ``flips[i]``."""
-    return np.stack([
-        (im[:, ::-1] if flips is not None and flips[i] else im).astype(np.float32) / 255.0
-        for i, im in enumerate(images)
-    ])
-
-
 GENERAL_TASKS = ("super-resolution", "colorization", "inpainting")
 
 
@@ -127,7 +117,7 @@ def make_general_batch(
     """One `General_PKLDataset` batch of ``task``: ``{'x': GT, 'y': its
     degradation}`` (inpainting: and ``'mask'``, each item's square drawn
     from ``rng``, or from its own generator seeded with ``seeds[i]``)."""
-    x = assemble_batch(images, flips)
+    x = assemble_batch(images, flips=flips)
     if x.shape[1] != image_size:
         x = bicubic_resize_np(x, image_size)
     if task == "super-resolution":
@@ -145,10 +135,8 @@ def make_lrhr_batch(
 ) -> Dict[str, np.ndarray]:
     """``{'x': HR, 'y': LQ}`` of stored pairs, each pair flipped together
     (LQ upsampled by nearest neighbour to the HR size when ``upscale_lr``)."""
-    x, y = assemble_batch(hr, flips), assemble_batch(lr, flips)
-    if upscale_lr:
-        y = nearest_upsample_np(y, x.shape[1] // y.shape[1])
-    return {"x": x, "y": y}
+    up = hr[0].shape[0] // lr[0].shape[0] if upscale_lr else 1
+    return {"x": assemble_batch(hr, flips=flips), "y": assemble_batch(lr, up=up, flips=flips)}
 
 
 def make_augmented_lrhr_batch(
@@ -213,11 +201,11 @@ def make_haar_batch(
 
     if mapping not in HAAR_MAPS:
         raise NotImplementedError(f"Mapping <<{mapping}>> is not supported")
-    x = assemble_batch(hr, flips)
+    x = assemble_batch(hr, flips=flips)
     approx, detail = (t.numpy() for t in multi_level_haar_forward(torch.from_numpy(x), int(level) + 1))
     if mapping == "approx to detail":
         return {"x": detail, "y": approx}
-    y = assemble_batch(lr, flips)
+    y = assemble_batch(lr, flips=flips)
     if mapping == "bicubic to approx":
         return {"x": approx, "y": y}
     return {"x": np.concatenate([approx, detail], axis=-1), "y": y}
@@ -345,53 +333,3 @@ class PKLDataModule:
 
 for _name in DATAMODULES:
     register_datamodule(PKLDataModule, name=_name)
-
-
-class PrefetchIterator:
-    """Batches of ``iterator`` made ahead on a background thread, at most
-    ``depth`` waiting (JAX `data/native.py:PrefetchIterator`): the host
-    builds the next batch while the device runs the step.  `close` stops
-    the thread (the train iterator never ends by itself)."""
-
-    def __init__(self, iterator, depth: int = 2):
-        self._q: queue.Queue = queue.Queue(maxsize=depth)
-        self._sentinel = object()
-        self._err: Optional[BaseException] = None
-        self._stop = threading.Event()
-
-        def run():
-            try:
-                for item in iterator:
-                    if not self._put(item):
-                        return
-            except BaseException as e:  # raised again in the consumer
-                self._err = e
-            finally:
-                self._put(self._sentinel)
-
-        self._thread = threading.Thread(target=run, daemon=True)
-        self._thread.start()
-
-    def _put(self, item) -> bool:
-        while not self._stop.is_set():
-            try:
-                self._q.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                continue
-        return False
-
-    def close(self, timeout: float = 10.0) -> None:
-        self._stop.set()
-        self._thread.join(timeout)
-
-    def __iter__(self):
-        return self
-
-    def __next__(self):
-        item = self._q.get()
-        if item is self._sentinel:
-            if self._err is not None:
-                raise self._err
-            raise StopIteration
-        return item

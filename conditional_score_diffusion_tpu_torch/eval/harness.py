@@ -22,6 +22,13 @@ All draws come from one noise source, by default a `torch.Generator` seeded
 with ``config.seed + 17`` on the device, used by the sampler calls in turn
 in the JAX order of use; a test passes a source that replays the JAX key
 chain.  The sampler runs in the recipe's precision (float32) with TF32 off.
+
+Data parallel (a process group of `parallel`, e.g. ``torchrun ... --mode
+test``; JAX's ``shard_sampling_fn``): where ``eval.batch_size`` splits
+evenly over the ranks, each rank samples its rows of ``y`` with the noise
+source's draws for those rows and the samples are all-gathered, so every
+rank holds the batch the unsharded sampler gives; rank 0 alone writes the
+PNGs, the metrics file and the lines.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from .. import parallel
 from ..data import create_datamodule
 from ..models import create_model
 from ..ops.resize import full_float32
@@ -105,7 +113,8 @@ def run_test(
     samples_dir = os.path.join(base, "images", "samples")
     gt_x_dir = os.path.join(base, "images", "x_gt")
     gt_y_dir = os.path.join(base, "images", "y_gt")
-    for d in (samples_dir, gt_x_dir, gt_y_dir):
+    writes = parallel.rank() == 0
+    for d in (samples_dir, gt_x_dir, gt_y_dir) if writes else ():
         Path(d).mkdir(parents=True, exist_ok=True)
 
     model, step = load_model(config, device, checkpoint_path)
@@ -129,7 +138,9 @@ def run_test(
             metrics_list.remove("lpips")
 
     shape_x = tuple(config.data.shape_x)
-    sample_shape = (evalc.batch_size,) + shape_x[1:] + (shape_x[0],)
+    sharded = parallel.is_distributed() and evalc.batch_size % parallel.world_size() == 0
+    rows = evalc.batch_size // parallel.world_size() if sharded else evalc.batch_size
+    sample_shape = (rows,) + shape_x[1:] + (shape_x[0],)
 
     consistency_fn = None
     if "consistency" in metrics_list:
@@ -149,7 +160,9 @@ def run_test(
             p_steps=evalc.p_steps, c_steps=evalc.c_steps, snr=e_snr,
             denoise=evalc.denoise, use_path=evalc.get("use_path", "default"),
         )
-        for draw in draws:
+        if sharded:
+            samplers[e_snr] = parallel.shard_sampling_fn(samplers[e_snr])
+        for draw in draws if writes else ():
             Path(os.path.join(samples_dir, f"snr_{e_snr:.3f}", f"draw_{draw}")).mkdir(parents=True, exist_ok=True)
 
     if noise is None:
@@ -168,7 +181,7 @@ def run_test(
         x_gt = torch.from_numpy(batch["x"]).to(device)
         y = torch.from_numpy(batch["y"]).to(device)
 
-        if evalc.save_samples:
+        if evalc.save_samples and writes:
             for i in range(x_gt.shape[0]):
                 save_png(batch["x"][i], os.path.join(gt_x_dir, f"{images_tested + i + 1}.png"))
                 save_png(batch["y"][i], os.path.join(gt_y_dir, f"{images_tested + i + 1}.png"))
@@ -185,7 +198,7 @@ def run_test(
                     torch.cuda.synchronize(device)
                 seconds = time.perf_counter() - t0
 
-                if evalc.save_samples:
+                if evalc.save_samples and writes:
                     ddir = os.path.join(samples_dir, f"snr_{e_snr:.3f}", f"draw_{draw}")
                     host = samples.cpu().numpy()
                     for i in range(host.shape[0]):
@@ -221,13 +234,16 @@ def run_test(
                     results[e_snr][m].append(float(np.mean(per_draw[m])))
 
         images_tested += x_gt.shape[0]
-        print(f"[test] batch {batch_idx} done ({images_tested} images)", flush=True)
+        if writes:
+            print(f"[test] batch {batch_idx} done ({images_tested} images)", flush=True)
 
     # bits/dim over the recipe's split, for an unconditional model (JAX's condition)
     if evalc.get("enable_bpd", False) and "conditioning_approach" not in config.training:
         with full_float32():
             results["bpd"] = evaluate_bpd(config, model, create_datamodule(config), device=device)
 
+    if not writes:
+        return results
     metrics_dir = os.path.join(base, "test_metrics")
     Path(metrics_dir).mkdir(parents=True, exist_ok=True)
     out_file = os.path.join(metrics_dir, f"{evalc.first_test_batch}_{evalc.last_test_batch}.pkl")

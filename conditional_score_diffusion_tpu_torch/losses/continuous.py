@@ -21,8 +21,12 @@ JAX order (t, then one draw per sorted domain; SR3 and unconditional: t,
 then z).  ``t`` and ``noise`` (a dict by domain; SR3 and unconditional:
 ``{'x': z}``) may be given instead, as the
 parity tests do with the JAX key chain's draws; jax.random and
-torch.Generator cannot agree.  Dropout, in train mode, draws from torch's
-default generator of the device (`training/steps.py` seeds it per step).
+torch.Generator cannot agree.  ``loss_fn.draws(sde, shapes, generator,
+device, given=None)`` is the one place that order is written: the loss
+calls it for its own batch, and the train step calls it for the global
+batch of a data-parallel step (`training/steps.py`).  Dropout, in train
+mode, draws from torch's default generator of the device
+(`training/steps.py` seeds it per step).
 ``params``: evaluate the model with these tensors in place of its own
 parameters (the EMA weights of an eval loss).
 """
@@ -53,6 +57,20 @@ def _uniform_t(B: int, T: float, eps: float, generator, device) -> torch.Tensor:
     return eps + (T - eps) * torch.rand(B, generator=generator, device=device)
 
 
+def shapes_of(batch):
+    """The shape of a tensor batch, or a dict of shapes by key."""
+    return batch.shape if torch.is_tensor(batch) else {k: v.shape for k, v in batch.items()}
+
+
+def given_draws(key: str, times, noise) -> Dict[str, torch.Tensor]:
+    """The injected draws of a loss call as one dict: ``noise`` and, where
+    given, the times under ``key`` (``'t'`` or ``'labels'``)."""
+    given = dict(noise or {})
+    if times is not None:
+        given[key] = times
+    return given
+
+
 def get_general_sde_loss_fn(
     model: torch.nn.Module,
     conditional: bool = False,
@@ -78,6 +96,24 @@ def get_general_sde_loss_fn(
             per_sample = _reduce(_flat(torch.square(batch_mul(std, score) + z)), reduce_mean)
         return per_sample.mean()
 
+    def draws(sde, shapes, generator, device, given=None) -> Dict[str, torch.Tensor]:
+        """The loss's random inputs for a batch of ``shapes`` (a shape, or a
+        dict of shapes by key): ``{'t': t, <domain>: noise}``, each taken
+        from ``given`` where it is there and otherwise drawn from
+        ``generator``, in the JAX order (t, then the sorted domains)."""
+        given = given or {}
+        if not conditional:
+            keys, T, shapes = ["x"], sde.T, {"x": shapes}
+        elif is_multispeed(sde):
+            keys = sorted(k for k in shapes if k in sde)
+            T = sde[keys[0]].T
+        else:
+            keys, T = ["x"], sde.T
+        out = {"t": given["t"] if "t" in given else _uniform_t(shapes[keys[0]][0], T, eps, generator, device)}
+        for k in keys:
+            out[k] = given[k] if k in given else torch.randn(tuple(shapes[k]), generator=generator, device=device)
+        return out
+
     def loss_fn(
         sde,
         batch: Union[torch.Tensor, Mapping[str, torch.Tensor]],
@@ -86,36 +122,28 @@ def get_general_sde_loss_fn(
         noise: Optional[Mapping[str, torch.Tensor]] = None,
         params: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> torch.Tensor:
-        noise = dict(noise or {})
+        if conditional and is_multispeed(sde) and not likelihood_weighting:
+            raise ValueError("multi-speed diffusion supports only likelihood weighting")
+        device = batch.device if torch.is_tensor(batch) else next(iter(batch.values())).device
+        noise = draws(sde, shapes_of(batch), generator, device, given_draws("t", t, noise))
+        t = noise.pop("t")
         if not conditional:
-            x, y = batch, None
-        elif is_multispeed(sde):
-            if not likelihood_weighting:
-                raise ValueError("multi-speed diffusion supports only likelihood weighting")
-            keys = sorted(k for k in batch if k in sde)
-            first = batch[keys[0]]
-            if t is None:
-                t = _uniform_t(first.shape[0], sde[keys[0]].T, eps, generator, first.device)
-            stds: Dict[str, torch.Tensor] = {}
-            perturbed: Dict[str, torch.Tensor] = {}
-            for k in keys:
-                if k not in noise:
-                    noise[k] = torch.randn(batch[k].shape, generator=generator, device=batch[k].device)
-                mean, std = sde[k].marginal_prob(batch[k], t)
-                stds[k] = std
-                perturbed[k] = mean + batch_mul(std, noise[k])
-            score = score_fn(sde, params)(perturbed, t)
-            parts = []
-            for k in keys:
-                g2 = sde[k].sde(batch[k], t)[1] ** 2
-                err = torch.square(score[k] + batch_mul(1.0 / stds[k], noise[k]))
-                parts.append(_flat(batch_mul(g2, err)))
-            return _reduce(torch.cat(parts, dim=-1), reduce_mean).mean()
-        else:  # SR3/CDE: x is perturbed, y enters the network clean.
-            x, y = batch["x"], batch["y"]
-        if t is None:
-            t = _uniform_t(x.shape[0], sde.T, eps, generator, x.device)
-        z = noise["x"] if "x" in noise else torch.randn(x.shape, generator=generator, device=x.device)
-        return single_sde_loss(sde, x, y, t, z, params)
+            return single_sde_loss(sde, batch, None, t, noise["x"], params)
+        if not is_multispeed(sde):  # SR3/CDE: x is perturbed, y enters the network clean.
+            return single_sde_loss(sde, batch["x"], batch["y"], t, noise["x"], params)
+        stds: Dict[str, torch.Tensor] = {}
+        perturbed: Dict[str, torch.Tensor] = {}
+        for k in noise:
+            mean, std = sde[k].marginal_prob(batch[k], t)
+            stds[k] = std
+            perturbed[k] = mean + batch_mul(std, noise[k])
+        score = score_fn(sde, params)(perturbed, t)
+        parts = []
+        for k in noise:
+            g2 = sde[k].sde(batch[k], t)[1] ** 2
+            err = torch.square(score[k] + batch_mul(1.0 / stds[k], noise[k]))
+            parts.append(_flat(batch_mul(g2, err)))
+        return _reduce(torch.cat(parts, dim=-1), reduce_mean).mean()
 
+    loss_fn.draws = draws
     return loss_fn

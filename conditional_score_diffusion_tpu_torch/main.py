@@ -27,6 +27,19 @@ recipes, JAX `run_lib.py:evaluation_pipeline`), and for
 ``compute_dataset_statistics`` writes the mean of the train split's Haar
 detail coefficients (`data.statistics`).  ``--device`` (not a JAX flag) is
 ``cuda`` unless the caller asks for the CPU.
+
+Data parallel, one process per card (`parallel`; JAX's ``('data',)`` mesh):
+
+    torchrun --standalone --nproc_per_node=N -m conditional_score_diffusion_tpu_torch.main \
+        --mode train --config texture160_sr_cmde_conv3x3 --log_path <dir>
+    torchrun --standalone --nproc_per_node=N -m conditional_score_diffusion_tpu_torch.main \
+        --mode test --config texture64_sr_cmde_test
+
+With ``WORLD_SIZE`` > 1 each process joins the group (NCCL on
+``cuda:LOCAL_RANK``, gloo on the CPU) and leaves it at the end; ``train``
+splits each global batch over the ranks and ``test`` each sampler batch
+(where ``eval.batch_size`` splits evenly); the other modes refuse to run
+under it.
 """
 
 from __future__ import annotations
@@ -34,6 +47,8 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import os
+
+import torch
 
 from . import configs
 
@@ -72,20 +87,31 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default="cuda", help="torch device (cuda unless asked otherwise)")
     args = parser.parse_args(argv)
 
+    distributed = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if distributed and args.mode not in ("train", "test"):
+        raise SystemExit(f"--mode {args.mode} runs in one process; only train and test run under torchrun")
     config = load_config(args.config)
     if args.data_path is not None:
         # a leaf recipe, or each recipe of a master config
         for recipe in [config] if "data" in config else vars(config).values():
             if hasattr(recipe, "data") and "base_dir" in recipe.data:
                 recipe.data.base_dir = args.data_path
-    if args.mode == "train":
-        from .training.trainer import train
+    if args.mode in ("train", "test"):
+        from . import parallel
 
-        train(config, args.log_path, args.checkpoint_path, device=args.device)
-    elif args.mode == "test":
-        from .eval.harness import run_test
+        device = parallel.init_distributed(args.device) if distributed else args.device
+        try:
+            if args.mode == "train":
+                from .training.trainer import train
 
-        run_test(config, args.log_path, args.checkpoint_path, device=args.device)
+                train(config, args.log_path, args.checkpoint_path, device=device)
+            else:
+                from .eval.harness import run_test
+
+                run_test(config, args.log_path, args.checkpoint_path, device=device)
+        finally:
+            if distributed:
+                torch.distributed.destroy_process_group()
     elif args.mode == "multi_scale_test":
         from .eval.multiscale import run_multi_scale_test
 

@@ -60,6 +60,7 @@ from .models.layers import (
 from .models.layerspp import AttnBlockpp
 from .models.wrappers import get_conditional_score_fn, get_score_fn
 from .ops import conv3x3, fir, fused_block, fused_tail
+from .profiling import attribute_profile, device_ms, kernel_launches, per_unit_lines
 from .sampling import get_pc_conditional_sampler
 from .sde import build_sde
 from .sde.factory import is_conditional_config
@@ -291,19 +292,16 @@ def main() -> int:
             short(torch.Generator(device="cuda").manual_seed(0), scores[fused], y)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        device_us = sum(e.self_device_time_total for e in events)
+        result = attribute_profile(prof)
+        busy_ms = device_ms(result)
         print(
             f"profiled 2 steps (4 score evaluations), {label} {'on' if fused else 'off'}: wall {wall * 1e3:.3f} ms,"
-            f" kernels {device_us / 1e3:.3f} ms of device time, busy share {device_us / 1e6 / wall:.3f},"
-            f" {sum(e.count for e in events) / 4:.0f} kernel launches per score evaluation",
+            f" kernels {busy_ms:.3f} ms of device time, busy share {busy_ms / 1e3 / wall:.3f},"
+            f" {kernel_launches(result) / 4:.0f} kernel launches per score evaluation; per evaluation by family,"
+            " then by kernel:",
             flush=True,
         )
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
-            print(
-                f"  {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x  {e.key[:110]}",
-                flush=True,
-            )
+        print("\n".join(per_unit_lines(result, 4, top)), flush=True)
     return 0
 
 

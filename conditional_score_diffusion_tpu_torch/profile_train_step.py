@@ -11,11 +11,11 @@ turns (on, off, off, on, ...); then one profiled window of 2 steps each,
 whose kernels are listed by device time with the device's busy share.  The
 card's name and power limit are printed first.
 
-The split of a profiled window by kernel (:func:`kernel_table`) and the
-plain FIR's device time in a step (:func:`recording_upfirdn`,
+A profiled window is split by kernel family with `profiling.attribute`;
+the plain FIR's device time in a step (:func:`recording_upfirdn`,
 :func:`plain_fir_ms`: every `ops/upfirdn.py:upfirdn2d` call of one step,
 run again forward and, where a gradient flows through it, backward, its
-kernels' durations summed by :func:`kernel_ms`) are what `chip_smoke.py`
+kernels' durations summed by :func:`kernel_ms`) is what `chip_smoke.py`
 reports for the NCSN++ DF2K direct 4x trainer.
 """
 
@@ -36,19 +36,12 @@ from .configs import texture160_sr_cmde_conv3x3_config
 from .data.pkl_datasets import PKLDataModule
 from .models import create_model
 from .ops import upfirdn
+from .profiling import attribute_profile, device_ms, kernel_launches, per_unit_lines
 from .training.state import create_train_state
 from .training.steps import make_train_step, seeded
 from .training.trainer import to_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def kernel_table(prof, steps: int):
-    """``(device ms per step, rows)`` of a profile of ``steps`` steps; a row
-    is ``(kernel, ms per step, launches per step)``, longest first."""
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows = sorted(((e.key, e.self_device_time_total / 1e3 / steps, e.count / steps) for e in events), key=lambda r: -r[1])
-    return sum(r[1] for r in rows), rows
 
 
 @contextlib.contextmanager
@@ -74,15 +67,16 @@ def recording_upfirdn():
 
 def kernel_ms(fn, warmup: int = 1) -> float:
     """Device time of one call of ``fn``: the summed durations of the
-    kernels it launches (`torch.profiler`), as :func:`kernel_table` sums a
-    step's; idle time between them does not count."""
+    kernels, copies and fills it launches (`torch.profiler`, attributed by
+    `profiling.attribute_profile`); idle time between them does not count."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return kernel_table(prof, 1)[0]
+    return device_ms(attribute_profile(prof))
+
 
 
 def plain_fir_ms(calls, timer, device) -> float:
@@ -167,16 +161,15 @@ def main() -> int:
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
             wall = run(key, 2) * 2 / 1e3
-        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        device_us = sum(e.self_device_time_total for e in events)
+        result = attribute_profile(prof)
+        busy_ms = device_ms(result)
         print(
-            f"profiled 2 train steps, kernel 4 {key}: wall {wall * 1e3:.3f} ms, kernels {device_us / 1e3:.3f} ms"
-            f" of device time, busy share {device_us / 1e6 / wall:.3f},"
-            f" {sum(e.count for e in events) / 2:.0f} kernel launches per step",
+            f"profiled 2 train steps, kernel 4 {key}: wall {wall * 1e3:.3f} ms, kernels {busy_ms:.3f} ms"
+            f" of device time, busy share {busy_ms / 1e3 / wall:.3f},"
+            f" {kernel_launches(result) / 2:.0f} kernel launches per step; per step by family, then by kernel:",
             flush=True,
         )
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
-            print(f"  {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x  {e.key[:110]}", flush=True)
+        print("\n".join(per_unit_lines(result, 2, 25)), flush=True)
     return 0
 
 

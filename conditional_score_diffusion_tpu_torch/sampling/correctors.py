@@ -6,6 +6,8 @@ and ``none``.
 ``langevin`` and ``ald`` draw fresh noise on each of their ``n_steps``.
 The step size carries alpha: 1 under VE, the DDPM ``alphas[timestep]``
 under VP.  The ``conditional_*`` registry names alias the same functions.
+The Langevin step size takes the batch's mean score and noise norms
+(`parallel.batch_mean`: over every rank's rows in a sharded sampler).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from .. import registry
+from ..parallel import batch_mean
 from ..sde import VPSDE, batch_mul
 from .predictors import timestep_index
 
@@ -33,8 +36,8 @@ def langevin(noise, x, t, *, sde, score_fn, snr, n_steps, y=None):
     for _ in range(n_steps):
         grad = score_fn(x, t) if y is None else score_fn(x, y, t)
         z = noise(x.shape)
-        grad_norm = torch.linalg.vector_norm(grad.reshape(grad.shape[0], -1), dim=-1).mean()
-        noise_norm = torch.linalg.vector_norm(z.reshape(z.shape[0], -1), dim=-1).mean()
+        grad_norm = batch_mean(torch.linalg.vector_norm(grad.reshape(grad.shape[0], -1), dim=-1))
+        noise_norm = batch_mean(torch.linalg.vector_norm(z.reshape(z.shape[0], -1), dim=-1))
         step_size = (snr * noise_norm / grad_norm) ** 2 * 2 * alpha
         x_mean = x + batch_mul(step_size, grad)
         x = x_mean + batch_mul(torch.sqrt(step_size * 2), z)

@@ -9,12 +9,24 @@ under the warmup schedule, and the EMA step.  It returns the metrics
 synchronizes).
 
 Randomness is a function of ``(config.seed, step)``, as the JAX step folds
-the step into its key: the loss draws t and the noise from a generator
-seeded with :func:`step_seed`, and dropout draws from torch's default
-generator, which :func:`seeded` seeds the same way and restores after.  A
-run restored from a checkpoint therefore continues bit for bit on the same
-device.  The draws are torch's, not jax.random's; the parity tests inject
-the JAX key chain's ``t`` and noise instead (``noise=``).
+the step into its key: t and the noise of micro-batch ``i`` are the loss's
+``draws`` from a generator seeded with :func:`step_seed`, and dropout draws
+from torch's default generator, which :func:`seeded` seeds the same way and
+restores after.  A run restored from a checkpoint therefore continues bit
+for bit on the same device.  The draws are torch's, not jax.random's; the
+parity tests inject the JAX key chain's ``t`` and noise instead
+(``noise=``).
+
+Data parallel (a process group of `parallel`, JAX's sharded step): both
+steps take the global batch (and the global ``noise``).  Each rank makes
+the draws for the global batch, as one process would, and keeps its rows of
+both (with no process group, all rows); after the accumulation loop one
+all-reduce averages the gradients and the loss over the ranks, where XLA's
+psum sits, so the norm, the clip, Adam and the EMA see the global gradient
+on every rank.  Dropout draws from a seed that folds in the rank
+(micro-batch index ``i + rank * accum``), so ranks do not share masks; rank
+0's is the world-1 seed.  The eval step returns the loss's mean over the
+ranks; a batch that does not split evenly is evaluated whole on every rank.
 """
 
 from __future__ import annotations
@@ -24,7 +36,9 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from .. import parallel
 from ..losses import build_loss_fn
+from ..losses.continuous import shapes_of
 from ..models.ema import ema_update
 from ..sde import build_sde
 from .schedules import is_decreasing_variance, sigma_y_at_step
@@ -88,6 +102,19 @@ def _first(batch) -> torch.Tensor:
     return batch if torch.is_tensor(batch) else next(iter(batch.values()))
 
 
+def _global_draws(draws, sde, batch, seeds, given) -> Dict[str, torch.Tensor]:
+    """The loss's ``draws`` for the global ``batch``: micro-batch ``i`` of
+    ``len(seeds)`` from a generator seeded with ``seeds[i]``, what is in
+    ``given`` (the injected ``noise``) taken as it is; in row order."""
+    device, n = _first(batch).device, len(seeds)
+    parts = [
+        draws(sde, shapes_of(_split(batch, n, i)), torch.Generator(device=device).manual_seed(s), device,
+              _split(given, n, i) if given else None)
+        for i, s in enumerate(seeds)
+    ]
+    return parts[0] if n == 1 else {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
 def _pop_times(noise) -> Dict[str, torch.Tensor]:
     """The time draws of an injected ``noise`` dict, taken out of it: the
     continuous losses' ``t``, the discrete losses' integer ``labels``."""
@@ -127,25 +154,24 @@ def make_train_step(config, model: torch.nn.Module, data_mean=None) -> Callable:
             events.append(ev)
 
     def train_step(state: TrainState, batch, noise=None, events=None) -> Dict[str, Any]:
-        B = _first(batch).shape[0]
+        rank, world = parallel.rank(), parallel.world_size()
+        local = parallel.local_batch(batch, rank, world)
+        B = _first(local).shape[0]
         if B % accum:
             raise ValueError(f"training.batch_size ({B}) must be divisible by accumulate_grad_batches ({accum})")
         device = _first(batch).device
         sde = sde_fn(state.step)
+        seeds = [step_seed(config.seed, state.step, i) for i in range(accum)]
+        noise = parallel.local_batch(_global_draws(loss_fn.draws, sde, batch, seeds, noise), rank, world)
         for p in params:
             p.grad = None
         loss = torch.zeros((), device=device)
         mark(events)
         for i in range(accum):
-            mb = _split(batch, accum, i) if accum > 1 else batch
-            mb_noise = None
-            if noise is not None:
-                mb_noise = _split(noise, accum, i) if accum > 1 else dict(noise)
-            seed = step_seed(config.seed, state.step, i)
-            with seeded(seed, device):
-                gen = torch.Generator(device=device).manual_seed(seed)
-                draws = _pop_times(mb_noise)
-                loss_i = loss_fn(sde, mb, generator=gen, noise=mb_noise, **draws)
+            mb = _split(local, accum, i) if accum > 1 else local
+            mb_noise = _split(noise, accum, i) if accum > 1 else dict(noise)
+            with seeded(step_seed(config.seed, state.step, i + rank * accum), device):
+                loss_i = loss_fn(sde, mb, noise=mb_noise, **_pop_times(mb_noise))
                 mark(events)
                 loss_i.backward()
             mark(events)
@@ -153,6 +179,8 @@ def make_train_step(config, model: torch.nn.Module, data_mean=None) -> Callable:
         if accum > 1:
             loss = loss / accum
             torch._foreach_div_([p.grad for p in params], float(accum))
+        if parallel.is_distributed():
+            parallel.all_reduce_mean_([p.grad for p in params] + [loss])
         g_norm = apply_gradients(state, zip(names, params))
         mark(events)
         return {"loss": loss, "grad_norm": g_norm}
@@ -169,10 +197,19 @@ def make_eval_step(config, model: torch.nn.Module, data_mean=None, use_ema: bool
 
     def eval_step(state: TrainState, batch, generator: Optional[torch.Generator] = None, noise=None) -> Dict[str, Any]:
         params = state.ema.params if use_ema else None
-        noise = dict(noise or {})
-        draws = _pop_times(noise)
+        sde = sde_fn(state.step)
+        rank, world = parallel.rank(), parallel.world_size()
+        sharded = parallel.is_distributed() and _first(batch).shape[0] % world == 0
+        if not sharded:
+            rank, world = 0, 1  # no process group, or evaluated whole on every rank
+        noise = loss_fn.draws(sde, shapes_of(batch), generator, _first(batch).device, noise)
+        batch, noise = parallel.local_batch(batch, rank, world), parallel.local_batch(noise, rank, world)
         with torch.no_grad():
-            loss = loss_fn(sde_fn(state.step), batch, generator=generator, noise=noise or None, params=params, **draws)
+            loss = loss_fn(sde, batch, noise=noise, params=params, **_pop_times(noise))
+        if sharded:
+            loss = loss.reshape(1)
+            parallel.all_reduce_mean_([loss])
+            loss = loss.reshape(())
         return {"eval_loss": loss}
 
     return eval_step

@@ -40,7 +40,16 @@ The profiler window (JAX ``CSDT_PROFILE_DIR``): with that variable set,
 CSDT_PROFILE_STEPS`` (default 10) on the host and the device, writes a
 Chrome trace ``trace_steps_<a>-<b>.json`` into that directory and keeps the
 profile as ``trainer.profile`` (its ``key_averages()`` split the window's
-device time by kernel).
+device time by kernel).  Its collection is prepared one step earlier (the
+warm-up step, whose records are discarded) and a 20 ms host margin
+separates each edge from the traced work: without both, a window now and
+then loses kernels at its start (`profiling/edges.py`).
+
+Data parallel (a process group of `parallel`, e.g. under ``torchrun``):
+every rank makes the same global batches and the steps keep each rank's
+rows (`training/steps.py`); the state is broadcast from rank 0 after the
+init and after a restore; the eval loss is the mean over the ranks; rank 0
+alone writes (scalars, images, checkpoints, callbacks, the profiler trace).
 """
 
 from __future__ import annotations
@@ -53,8 +62,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from .. import parallel
 from ..data import create_datamodule
-from ..data.pkl_datasets import PrefetchIterator
+from ..data.native import PrefetchIterator
 from ..models import create_model
 from .callbacks import get_callbacks
 from .checkpoint import CheckpointManager
@@ -62,6 +72,9 @@ from .schedules import is_decreasing_variance, sigma_y_at_step
 from .state import create_train_state
 from .steps import make_eval_step, make_train_step, seeded, step_seed
 from .tasks import create_task
+
+
+PROFILE_MARGIN_S = 0.02  # host time between the profiler's window edges and the traced work
 
 
 def to_device(batch, device: torch.device):
@@ -130,6 +143,8 @@ class Trainer:
         self.log_path = log_path
         self.checkpoint_path = checkpoint_path
         self.device = torch.device(device)
+        if parallel.is_distributed() and self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())  # cuda:LOCAL_RANK
         os.makedirs(log_path, exist_ok=True)
 
         self.datamodule = create_datamodule(config)
@@ -146,12 +161,17 @@ class Trainer:
             CheckpointManager(checkpoint_path).restore(self.state)
         elif self.ckpt.latest_step() is not None:
             self.ckpt.restore(self.state)
+        self.rank = parallel.rank()
+        if parallel.is_distributed():
+            model = self.state.model
+            parallel.broadcast_state([*model.parameters(), *model.buffers(), *self.state.ema.params.values()])
         self.writer = LogWriter(log_path)
         self.callback_failures: Dict[str, int] = {}
         self.profile, self.profile_steps = None, 0
 
     def log_scalar(self, tag: str, value: float, step: int):
-        self.writer.add_scalar(tag, value, step)
+        if self.rank == 0:
+            self.writer.add_scalar(tag, value, step)
 
     def run_eval(self, step: int) -> float:
         """Mean EMA loss over the eval split's batches; batch i draws from
@@ -170,12 +190,14 @@ class Trainer:
         config = self.config
         if callbacks is None:
             callbacks = get_callbacks(config, phase="train")
+        profile_dir = os.environ.get("CSDT_PROFILE_DIR")
+        profile_steps = int(os.environ.get("CSDT_PROFILE_STEPS", "10"))
+        if self.rank:
+            callbacks, profile_dir = [], None
         n_iters = max_steps if max_steps is not None else config.training.n_iters
         log_freq = config.training.get("log_freq", 250)
         eval_freq = config.training.get("eval_freq", 2500)
         snapshot_freq = config.training.get("snapshot_freq", 5000)
-        profile_dir = os.environ.get("CSDT_PROFILE_DIR")
-        profile_steps = int(os.environ.get("CSDT_PROFILE_STEPS", "10"))
 
         train_iter = PrefetchIterator(self.datamodule.train_iterator(), depth=2)
         history = {"train_loss": [], "eval_loss": []}
@@ -185,11 +207,14 @@ class Trainer:
         # eval/snapshot/callback work so ms_per_step never absorbs host work.
         window_step = self.state.step
         start = self.state.step
-        prof = None
+        prof, recording = None, False
         try:
             for step in range(start, n_iters):
-                if profile_dir and step == start + 2:
-                    prof = self._start_profile()
+                if profile_dir and step == start + 1 and n_iters > start + 2:
+                    prof = self._prepare_profile()
+                if prof is not None and step == start + 2:
+                    self._start_profile(prof)
+                    recording = True
                 if prof is not None and step == start + 2 + profile_steps:
                     self._stop_profile(prof, profile_dir, start + 2, step)
                     prof = profile_dir = None
@@ -214,17 +239,18 @@ class Trainer:
                     self.log_scalar("ms_per_step", ms_step, step + 1)
                     self.log_scalar("train_imgs_per_sec", imgs_s, step + 1)
                     self.log_scalar("window_steps", n_window, step + 1)
-                    print(
-                        f"step {step + 1}: loss={loss:.5f} ({dt:.1f}s, {ms_step:.1f} ms/step, {imgs_s:.1f} img/s)",
-                        flush=True,
-                    )
+                    if self.rank == 0:
+                        print(
+                            f"step {step + 1}: loss={loss:.5f} ({dt:.1f}s, {ms_step:.1f} ms/step, {imgs_s:.1f} img/s)",
+                            flush=True,
+                        )
 
                 t_host0 = time.time()
                 if (step + 1) % eval_freq == 0:
                     eval_loss = self.run_eval(step)
                     history["eval_loss"].append((step + 1, eval_loss))
                     self.log_scalar("eval_loss", eval_loss, step + 1)
-                if (step + 1) % snapshot_freq == 0 or (step + 1) == n_iters:
+                if self.rank == 0 and ((step + 1) % snapshot_freq == 0 or (step + 1) == n_iters):
                     self.ckpt.save(self.state.step, self.state)
                 for cb in callbacks:
                     self._run_callback(cb, step + 1)
@@ -233,8 +259,10 @@ class Trainer:
                     window_step = step + 1
         finally:
             train_iter.close()
-            if prof is not None:  # the run ended inside the window
+            if prof is not None and recording:  # the run ended inside the window
                 self._stop_profile(prof, profile_dir, start + 2, n_iters)
+            elif prof is not None:  # it failed in the warm-up step: nothing to write
+                prof.stop()
         return history
 
     def _run_callback(self, cb, step: int) -> None:
@@ -250,17 +278,30 @@ class Trainer:
             self.log_scalar(f"callback_failures/{name}", self.callback_failures[name], step)
             self.writer.add_text(f"callback_errors/{name}", msg, step)
 
-    def _start_profile(self):
+    def _prepare_profile(self):
+        """A profiler whose collection runs from now on; what it records
+        before `_start_profile` is discarded."""
         activities = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=activities)
-        prof.start()
+        prof.prepare_trace()
         return prof
+
+    def _start_profile(self, prof) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.start_trace()
+        # The warm-up step and a margin between the window's edges and its first and last
+        # kernels: on an H100 (700 W) a window that had neither lost some of its first kernels
+        # in 79 of 100 windows after the process idled 300 s, with the margin alone in 9 of
+        # 100, with both in none of 200 (`profiling/edges.py`).
+        time.sleep(PROFILE_MARGIN_S)
 
     def _stop_profile(self, prof, profile_dir: str, first: int, end: int) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        time.sleep(PROFILE_MARGIN_S)
         prof.stop()
         os.makedirs(profile_dir, exist_ok=True)
         path = os.path.join(profile_dir, f"trace_steps_{first + 1}-{end}.json")

@@ -2,8 +2,9 @@
 
 A subprocess installs an import hook that refuses jax, flax, optax,
 ml_collections, absl and conditional_score_diffusion_tpu, then imports every
-module of the port, chip_smoke (as a module; its main does not run) and the
-card-only test files, which run on a machine without JAX.
+module of the port, chip_smoke (as a module; its main does not run), the
+card-only test files, which run on a machine without JAX, and the worker of
+the data-parallel test (`tests/_torch_parallel_worker.py`).
 """
 
 import os
@@ -40,6 +41,7 @@ SCRIPT = textwrap.dedent(
     sys.path.insert(0, "tests")
     import test_torch_conv3x3_cuda, test_torch_fir_cuda, test_torch_fused_act_cuda, test_torch_fused_block_cuda
     import test_torch_fused_tail_cuda
+    import _torch_parallel_worker
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
     assert not loaded, loaded
     print(len(names), "modules")
@@ -73,6 +75,7 @@ def test_port_imports_without_jax():
         "data.degradations", "data.paired", "data.statistics", "configs.inverse_problems", "models.ddpm3d",
         "models.ncsnv2", "models.normalization", "losses.discrete", "data.image_folder", "configs.song",
         "configs.ncsn_legacy", "configs.score_sde", "data.builder", "data.sr_multiscale", "eval.fid",
-        "eval.inception", "eval.lpips",
+        "eval.inception", "eval.lpips", "parallel", "parallel.mesh", "profiling", "profiling.trace",
+        "profiling.__main__", "profiling.edges", "data.native", "models.reference_checkpoint",
     ):
         assert f"conditional_score_diffusion_tpu_torch.{name}" in names, name
